@@ -33,15 +33,39 @@ exits non-zero:
                best (f, v) and launch counts; then K1 alone and its plain
                version on the first solve's starts at the same shape: K1
                must give that solve's best point and equal the plain
-               version bit for bit (and within the margins above).
+               version bit for bit (and within the margins above);
+  6. k3        K3 (csrc/admm.cu) against its plain version on the card,
+               phase by phase, every lane bit for bit: the bench form,
+               R = 1,024 numpy starts, 50 iterations (phase 1, phase 2
+               after phase 1's better-fold, phase 2 alone as with
+               phase1=False); boolean least squares (semidefinite rows:
+               the bracket doubling runs); the wide-root instance of
+               tests/test_admm_pallas.py (violation < 1e-2 after the
+               rescue jumps); identity at num_iters=0 and
+               restart-permutation invariance;
+  7. admm_path solve_restarts(improve=ADMM, num_iters=50) on the bench form
+               at R = 1,024 and 10,240 from a seeded torch.Generator: ms
+               per solve (3 after a warm-up), restarts/s, best (f, v), K3's
+               launch count and the host set-up time; then, at each R, K3
+               alone and its plain version on the first timed solve's
+               starts, both timed: K3 must give that solve's best point
+               and equal the plain version bit for bit on every lane;
+  8. admm_golden  boolean least squares through QCQP(prob): RANDOM, CD,
+               then ADMM(phase1=False) through K3
+               (examples/boolean_least_squares.py:45-47 with RANDOM in
+               place of SDR), no worse than CD's point under `better` and
+               bit for bit equal to the plain version on that restart;
+               QCQP.solve(256 restarts, improve=ADMM) through K3 reaches
+               violation < 1e-2; a rho below the minimum raises.
 
 Then the card's line from nvidia-smi, the kernels' JSON line, and the
 result line {"ok": true, "device": {...}}.  Without a CUDA device, or
 outside a checkout of the repository, it fails before printing anything.
 
 `python3 chip_smoke.py --profile` adds, before those last lines, a
-torch.profiler breakdown of one main-path solve per route (kernel time by
-kernel name, against the unprofiled solve's wall time) and K1's time at
+torch.profiler breakdown of one solve per route (CD through K1 and through
+K2 at R = 10,240; ADMM through K3 at R = 1,024 and 10,240): kernel time by
+kernel name, against the unprofiled solve's wall time; then K1's time at
 R = 256 ... 40,960 restarts.
 """
 
@@ -57,6 +81,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 N, M, R_MAIN, SWEEPS = 100, 50, 10240, 10     # bench.py:24-27
 R_K1_CHECK, K1_CHECK_SWEEPS = 1024, 3
+R_K3_CHECK, ADMM_ITERS = 1024, 50             # bench.py:209-210
+R_ADMM = (1024, 10240)                        # bench.py's ADMM shape; 10^4
+R_ADMM_GOLDEN = 256
 
 
 def emit(obj):
@@ -441,6 +468,247 @@ def phase_main(arrays):
     return launches, ms_main, (ms_k1_a + ms_k1_b) / 2, ms_plain, k1_err
 
 
+def _k3_agrees(name, xk, xp):
+    """K3 against its plain version: every lane bit for bit (-fmad=false
+    on both sides; a NaN matches a NaN).  Returns the lane count and the
+    max |dx| for the log."""
+    xk, xp = xk.cpu().numpy(), xp.cpu().numpy()
+    same = ((xk == xp) | (np.isnan(xk) & np.isnan(xp))).all(axis=1)
+    err = float(np.nan_to_num(np.abs(xk - xp), nan=0.0).max())
+    if not same.all():
+        raise AssertionError(
+            f"{name}: K3 disagrees with its plain version on "
+            f"{int((~same).sum())} of {len(same)} lanes, max |dx| {err}")
+    return {"lanes_identical": int(same.sum()), "max_abs_dx": err}
+
+
+def wide_root_arrays():
+    """tests/test_admm_pallas.py:103-122: a concave row whose secular root
+    lies beyond K3's 2^10 doubling budget (the x1024 jumps reach it)."""
+    n = 4
+    P = np.stack([np.eye(n), -1e-4 * np.eye(n)])
+    return P, np.zeros((2, n)), np.array([0.0, 0.25]), np.zeros(1, bool)
+
+
+def phase_k3(arrays):
+    """K3 against its plain version on the card, phase by phase."""
+    import torch
+    from qcqp_tpu_torch.convert import form_from_numpy
+    from qcqp_tpu_torch.core import better_batch, max_violation_batch
+    from qcqp_tpu_torch.kernels.admm_kernel import (
+        ADMMFusedData, admm_phase, admm_phase_ref, improve_admm_fused)
+    rng = np.random.default_rng(9)
+
+    def case(arrs, R, iters, scale=1.0):
+        form = form_from_numpy(*arrs, device="cuda", dtype=torch.float32)
+        d = ADMMFusedData(form)
+        xs = torch.from_numpy((scale * rng.standard_normal((R, form.n)))
+                              .astype(np.float32)).cuda()
+        return form, d, xs, dict(num_iters=iters)
+
+    def both(name, d, x, phase, kw, timed=False):
+        ms_k, xk = host_ms(lambda: admm_phase(d, x, phase, **kw))
+        ms_p, xp = host_ms(lambda: admm_phase_ref(d, x, phase, **kw))
+        out = _k3_agrees(name, xk, xp)
+        if timed:
+            out.update(ms=cuda_ms(lambda: admm_phase(d, x, phase, **kw), 2),
+                       plain_ms=ms_p)
+        return out, xk
+
+    res = {}
+    # the bench form: phase 1, phase 2 after phase 1's better-fold (as in
+    # the improve), and phase 2 alone (phase1=False)
+    form, d, xs, kw = case(arrays, R_K3_CHECK, ADMM_ITERS)
+    for phase in (1, 2):
+        if not torch.equal(admm_phase(d, xs, phase, num_iters=0), xs):
+            raise AssertionError(f"K3 phase {phase} with num_iters=0 is "
+                                 "not the identity")
+    if not torch.equal(improve_admm_fused(form, xs, num_iters=0, data=d), xs):
+        raise AssertionError("improve_admm_fused with num_iters=0 is not "
+                             "the identity")
+    res["bench_phase1"], x1 = both("bench phase 1", d, xs, 1, kw, timed=True)
+    x1 = better_batch(d.form32, xs, x1)
+    res["bench_phase2"], _ = both("bench phase 2", d, x1, 2, kw, timed=True)
+    res["bench_phase2_alone"], x2 = both("bench phase 2 alone", d, xs, 2, kw)
+    for x in (x1, x2):
+        if not torch.isfinite(x).all():
+            raise AssertionError("K3 returned non-finite values on the "
+                                 "bench form")
+    perm = torch.from_numpy(np.random.default_rng(8).permutation(
+        R_K3_CHECK)).cuda()
+    for phase in (1, 2):
+        full = admm_phase(d, xs, phase, **kw)
+        if not torch.equal(admm_phase(d, xs[perm], phase, **kw), full[perm]):
+            raise AssertionError("K3's per-restart output depends on the "
+                                 "restart order")
+    # boolean least squares: semidefinite rows, so the bracket doubling runs
+    _, d, xs, kw = case(boolean_ls_arrays(), R_K3_CHECK, ADMM_ITERS)
+    if not d.need_dbl:
+        raise AssertionError("boolean LS should take K3's doubling path")
+    for phase in (1, 2):
+        res[f"boolean_ls_phase{phase}"], _ = both(
+            f"boolean LS phase {phase}", d, xs, phase, kw)
+    # the wide-root rescue: the start 0.01 (1, 1, 1, 1) and scattered ones
+    form, d, xs, kw = case(wide_root_arrays(), 64, 200, scale=0.01)
+    xs[0] = 0.01
+    for phase in (1, 2):
+        res[f"wide_root_phase{phase}"], _ = both(
+            f"wide root phase {phase}", d, xs, phase, kw)
+    xw = improve_admm_fused(form, xs[:1], data=d, **kw)
+    wide_viol = float(max_violation_batch(form, xw)[0])
+    if not wide_viol < 1e-2:
+        raise AssertionError(f"wide root: violation {wide_viol} >= 1e-2")
+    emit({"phase": "k3", "n": N, "m": M, "R": R_K3_CHECK,
+          "iters": ADMM_ITERS, "identity_at_0": True,
+          "permutation_invariant": True, "wide_root_viol": wide_viol, **res})
+    return max(v["max_abs_dx"] for v in res.values() if "max_abs_dx" in v)
+
+
+def phase_admm_path(arrays):
+    """solve_restarts(improve=ADMM) on the bench form, then K3 alone and
+    its plain version on the first timed solve's starts."""
+    import torch
+    import qcqp_tpu_torch as qt
+    from qcqp_tpu_torch.convert import form_from_numpy
+    from qcqp_tpu_torch.kernels.admm_kernel import (
+        ADMMFusedData, admm_phase, improve_admm_fused, improve_admm_fused_ref)
+    from qcqp_tpu_torch.parallel.restarts import (best_point, solve_restarts,
+                                                  suggest_batch)
+    form = form_from_numpy(*arrays, device="cuda", dtype=torch.float32)
+
+    def solve(seed, R):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return solve_restarts(form, R, gen, improve=qt.ADMM,
+                              num_iters=ADMM_ITERS)
+
+    for R in R_ADMM:
+        solve(0, R)                                    # warm-up
+    admm_phase.launches = 0
+    runs = {}
+    for R in R_ADMM:
+        times, results = [], []
+        for seed in (1, 2, 3):
+            ms, res = host_ms(lambda: solve(seed, R))
+            times.append(ms)
+            results.append(res)
+        runs[R] = (times, results)
+    launches = admm_phase.launches
+    if launches != 2 * 3 * len(R_ADMM):
+        raise AssertionError(f"ADMM path: {launches} K3 launches, expected "
+                             f"{2 * 3 * len(R_ADMM)}")
+    for _, results in runs.values():
+        for (x, f, v) in results:
+            if not (torch.isfinite(x).all() and x.shape == (N,)
+                    and bool(torch.isfinite(f)) and bool(torch.isfinite(v))):
+                raise AssertionError("ADMM path returned a non-finite point")
+
+    setup_ms, d = host_ms(lambda: ADMMFusedData(form))
+    vs_plain = {}
+    for R in R_ADMM:
+        # K3 alone and its plain version on the first timed solve's starts,
+        # at that solve's shape; kernel, plain, kernel
+        xs = suggest_batch(form, R,
+                           torch.Generator(device="cuda").manual_seed(1))
+
+        def k3():
+            return improve_admm_fused(form, xs, num_iters=ADMM_ITERS, data=d)
+        ms_a, x_k = host_ms(k3)
+        ms_plain, x_p = host_ms(lambda: improve_admm_fused_ref(
+            form, xs, num_iters=ADMM_ITERS, data=d))
+        ms_b, _ = host_ms(k3)
+        xb, fb, vb = best_point(form, x_k)
+        first = runs[R][1][0]
+        if not (torch.equal(xb, first[0]) and torch.equal(fb, first[1])
+                and torch.equal(vb, first[2])):
+            raise AssertionError(f"K3 on the first R = {R} solve's starts "
+                                 "does not give that solve's best point")
+        vs_plain[R] = {"k3_ms": [ms_a, ms_b], "plain_ms": ms_plain,
+                       **_k3_agrees(f"ADMM path, R = {R}", x_k, x_p)}
+    emit({"phase": "admm_path", "n": N, "m": M, "iters": ADMM_ITERS,
+          **{f"R={R}": {"ms_per_solve": t,
+                        "restarts_per_s": R / float(np.median(t)) * 1e3,
+                        "best_f": float(res[0][1]),
+                        "best_viol": float(res[0][2]),
+                        "k3_vs_plain": vs_plain[R]}
+             for R, (t, res) in runs.items()},
+          "k3_launches": launches, "setup_ms": setup_ms})
+    R = R_ADMM[0]
+    return {"launches": launches,
+            "max_abs_err": max(v["max_abs_dx"] for v in vs_plain.values()),
+            "ms": float(np.mean(vs_plain[R]["k3_ms"])),
+            "plain_ms": vs_plain[R]["plain_ms"],
+            "ms_by_R": {R: float(np.mean(v["k3_ms"]))
+                        for R, v in vs_plain.items()},
+            "plain_ms_by_R": {R: v["plain_ms"] for R, v in vs_plain.items()},
+            "ms_per_solve": {R: float(np.median(t))
+                             for R, (t, _) in runs.items()}}
+
+
+def phase_admm_golden():
+    """examples/boolean_least_squares.py:45-47 through QCQP(prob), with
+    RANDOM in place of SDR: CD, then ADMM(phase1=False) through K3, held
+    against the plain version on that restart; then QCQP.solve with
+    improve=ADMM through K3."""
+    import torch
+    import qcqp_tpu_torch as qt
+    from qcqp_tpu_torch.kernels.admm_kernel import (
+        ADMMFusedData, admm_phase, improve_admm_fused_ref)
+    from qcqp_tpu_torch.solvers.admm import min_valid_rho
+    A, b = boolean_ls_data()
+    x = qt.Variable(A.shape[1])
+    prob = qt.Problem(qt.Minimize(qt.sum_squares(A @ x - b)),
+                      [qt.square(x) == 1])
+    handler = qt.QCQP(prob)            # the default device: the card
+    if (handler.device.type != "cuda"
+            or handler.qcqp_form.dtype != torch.float32):
+        raise AssertionError("the handler did not default to CUDA float32")
+    form = handler.qcqp_form
+
+    def point():
+        return torch.as_tensor(handler.layout.flatten(), dtype=torch.float32,
+                               device="cuda")
+    handler.suggest(qt.RANDOM)
+    f_cd, v_cd = handler.improve(qt.COORD_DESCENT)
+    x_cd = point()
+    before = admm_phase.launches
+    f_a, v_a = handler.improve(qt.ADMM, phase1=False)
+    launched = admm_phase.launches - before
+    # the same restart through the plain version (the handler's defaults)
+    x_p = improve_admm_fused_ref(form, x_cd[None], phase1=False,
+                                 data=ADMMFusedData(form))
+    agree = _k3_agrees("ADMM golden", point()[None], x_p)
+    # the batched entry point: best of R_ADMM_GOLDEN restarts, 1,000
+    # iterations, phase 1 on; about a tenth of the restarts end within
+    # the violation tolerance, so the best one must
+    before = admm_phase.launches
+    f_s, v_s = handler.solve(num_restarts=R_ADMM_GOLDEN, improve=qt.ADMM)
+    solve_launches = admm_phase.launches - before
+    min_rho = float(min_valid_rho(form))
+    try:
+        handler.improve(qt.ADMM, rho=min_rho - 1.0)
+        raise AssertionError("rho below the minimum did not raise")
+    except ValueError as e:
+        if "rho parameter is too small" not in str(e):
+            raise
+    emit({"phase": "admm_golden", "cd": [f_cd, v_cd], "admm": [f_a, v_a],
+          "k3_launches": launched, "vs_plain": agree,
+          "solve": {"R": R_ADMM_GOLDEN, "best": [f_s, v_s],
+                    "k3_launches": solve_launches},
+          "min_valid_rho": min_rho})
+    b_a, b_cd = np.floor(v_a / 1e-4), np.floor(v_cd / 1e-4)
+    if not (b_a < b_cd or (b_a == b_cd and f_a <= f_cd + 1e-5 * abs(f_cd))):
+        raise AssertionError(f"ADMM ({f_a}, {v_a}) is worse than CD's "
+                             f"({f_cd}, {v_cd})")
+    if launched != 1:
+        raise AssertionError(f"improve(ADMM) launched K3 {launched} times")
+    if solve_launches != 2:
+        raise AssertionError(f"solve(improve=ADMM) launched K3 "
+                             f"{solve_launches} times")
+    if not v_s < 1e-2:
+        raise AssertionError(f"solve(improve=ADMM): best violation {v_s} "
+                             ">= 1e-2")
+
+
 def _device_ms_by_kernel(prof):
     """Device time (ms) and count per kernel name, from the profiler's
     device-side events only."""
@@ -454,36 +722,48 @@ def _device_ms_by_kernel(prof):
     return sorted(out.items(), key=lambda kv: -kv[1][0])
 
 
-def phase_profile(arrays):
-    """One profiled main-path solve per route, and K1's time over R."""
+def _profile_solve(solve, **label):
+    """One profiled solve after a warm-up and an unprofiled one: kernel
+    time by name and the card's idle share of the unprofiled wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    solve()                                            # warm-up
+    wall_ms, _ = host_ms(solve)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        solve()
+        torch.cuda.synchronize()
+    kernels = _device_ms_by_kernel(prof)
+    if not kernels:
+        raise AssertionError("the profiler recorded no device time")
+    device_ms = sum(ms for _, (ms, _) in kernels)
+    emit({"phase": "profile", **label, "wall_ms_unprofiled": wall_ms,
+          "device_ms": device_ms, "idle_share": 1.0 - device_ms / wall_ms,
+          "top": [[name[:60], ms, count]
+                  for name, (ms, count) in kernels[:6]]})
+
+
+def phase_profile(arrays):
+    """One profiled solve per route (CD through K1 and K2 at R = 10,240,
+    ADMM through K3 at R = 1,024 and 10,240), and K1's time over R."""
+    import torch
+    import qcqp_tpu_torch as qt
     from qcqp_tpu_torch.convert import form_from_numpy
     from qcqp_tpu_torch.kernels.cd_sweep_kernel import two_phase_sweeps
     from qcqp_tpu_torch.parallel.restarts import solve_restarts, suggest_batch
     form = form_from_numpy(*arrays, device="cuda", dtype=torch.float32)
 
-    def solve(mega):
-        gen = torch.Generator(device="cuda").manual_seed(1)
-        return solve_restarts(form, R_MAIN, gen, num_iters=SWEEPS, mega=mega)
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(1)
 
     for route, mega in (("k1", None), ("k2", False)):
-        solve(mega)                                    # warm-up
-        wall_ms, _ = host_ms(lambda: solve(mega))
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            solve(mega)
-            torch.cuda.synchronize()
-        kernels = _device_ms_by_kernel(prof)
-        if not kernels:
-            raise AssertionError("the profiler recorded no device time")
-        device_ms = sum(ms for _, (ms, _) in kernels)
-        emit({"phase": "profile", "route": route, "R": R_MAIN,
-              "sweeps": SWEEPS, "wall_ms_unprofiled": wall_ms,
-              "device_ms": device_ms,
-              "idle_share": 1.0 - device_ms / wall_ms,
-              "top": [[name[:60], ms, count]
-                      for name, (ms, count) in kernels[:6]]})
+        _profile_solve(lambda: solve_restarts(form, R_MAIN, gen(),
+                                              num_iters=SWEEPS, mega=mega),
+                       route=route, R=R_MAIN, sweeps=SWEEPS)
+    for R in R_ADMM:
+        _profile_solve(lambda: solve_restarts(form, R, gen(), improve=qt.ADMM,
+                                              num_iters=ADMM_ITERS),
+                       route="admm", R=R, iters=ADMM_ITERS)
     eq_idx = form.eq_idx()
     scaling = []
     for R in (256, 1024, 4096, 10240, 20480, 40960):
@@ -502,7 +782,8 @@ def main():
     import torch
     args = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     args.add_argument("--profile", action="store_true",
-                      help="add the profiler breakdown and K1's time over R")
+                      help="add the profiler breakdown per route and K1's "
+                           "time over R")
     args = args.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device")
@@ -517,6 +798,9 @@ def main():
     k1_err = phase_k1(arrays)
     phase_golden()
     launches, ms_main, ms_k1, ms_plain, k1_main_err = phase_main(arrays)
+    k3_err = phase_k3(arrays)
+    admm = phase_admm_path(arrays)
+    phase_admm_golden()
     if args.profile:
         phase_profile(arrays)
     if "jax" in sys.modules:
@@ -537,6 +821,16 @@ def main():
          "replaces": "qcqp_tpu/kernels/onevar_pallas.py:502",
          "launches": launches["k2"], "max_abs_err": k2["max_abs_err"],
          "ms": k2["ms"], "plain_ms": k2["plain_ms"], "shape": k2["shape"]},
+        {"name": "K3 admm_phase", "route": "cuda",
+         "source": "qcqp_tpu_torch/csrc/admm.cu",
+         "replaces": "qcqp_tpu/kernels/admm_pallas.py:407",
+         "launches": admm["launches"],
+         "max_abs_err": max(k3_err, admm["max_abs_err"]),
+         "ms": admm["ms"], "plain_ms": admm["plain_ms"],
+         "shape": f"n={N}, m={M}, R={R_ADMM[0]}, {ADMM_ITERS} iterations, "
+                  "both phases",
+         "ms_by_R": admm["ms_by_R"], "plain_ms_by_R": admm["plain_ms_by_R"],
+         "ms_admm_path": admm["ms_per_solve"]},
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -7,9 +7,11 @@ constant, sync the flat iterate with the modeling variables, return
 (objective, max violation) pairs with the maximize sign convention
 un-negated on report.
 
-This slice runs RANDOM suggest and COORD_DESCENT improve (single restarts
-through `improve`, restart batches through `solve`).  SDR and SPECTRAL
-suggest and the ADMM, DCCP and IPOPT improves raise NotImplementedError
+The port runs RANDOM suggest and the COORD_DESCENT and ADMM improves
+(single restarts through `improve`, restart batches through `solve`).  On a
+CUDA float32 form a single-restart ADMM goes through K3, with its one-time
+setup cached per rho on the handler, as the JAX handler does.  SDR and
+SPECTRAL suggest and the DCCP and IPOPT improves raise NotImplementedError
 naming the ROADMAP item that ports them.
 
 Randomness is a torch.Generator on the form's device, seeded by the `seed`
@@ -28,7 +30,9 @@ import torch
 from . import settings as s
 from .core import default_dtype, eval_objective, max_violation
 from .expressions import Problem, canonicalize
-from .parallel.restarts import solve_restarts
+from .kernels import admm_kernel
+from .parallel.restarts import _fused_default, solve_restarts
+from .solvers.admm import improve_admm, min_valid_rho
 from .solvers.coord_descent import improve_coord_descent
 
 logger = logging.getLogger("qcqp_tpu_torch")
@@ -69,6 +73,7 @@ class QCQP:
                 "Problem is already convex; specifying solve method is unnecessary."
             )
         self.generator = torch.Generator(device=device).manual_seed(seed)
+        self._admm_fused = {}      # rho (or None) -> ADMMFusedData
 
     # -- reporting ---------------------------------------------------------
     def _report(self, x: torch.Tensor) -> tuple:
@@ -106,7 +111,36 @@ class QCQP:
                 tol=kwargs.get("tol", 1e-4),
                 phase1=kwargs.get("phase1", True),
             )
+        if method == s.ADMM:
+            return self._improve_admm(x0, **kwargs)
         raise s.not_ported(method)
+
+    def _improve_admm(self, x0: torch.Tensor, **kwargs):
+        form = self.qcqp_form
+        rho = kwargs.get("rho", None)
+        if rho is not None:
+            min_rho = float(min_valid_rho(form))
+            if rho < min_rho:
+                raise ValueError(
+                    f"rho parameter is too small, need at least {min_rho:.3f}."
+                )
+        common = dict(num_iters=kwargs.get("num_iters", 1000),
+                      viol_lim=kwargs.get("viol_lim", 1e4),
+                      tol=kwargs.get("tol", 1e-2),
+                      phase1=kwargs.get("phase1", True))
+        if (admm_kernel.takes(form)
+                and kwargs.get("use_fused", _fused_default(form))):
+            # K3, with the one-time setup cached per rho like the
+            # reference's z-solver cache (qcqp/qcqp.py:224-227)
+            key = None if rho is None else float(rho)
+            data = self._admm_fused.get(key)
+            if data is None:
+                data = self._admm_fused[key] = admm_kernel.ADMMFusedData(
+                    form, rho)
+            out = admm_kernel.improve_admm_fused(form, x0[None], rho=rho,
+                                                 data=data, **common)
+            return out[0].to(form.dtype)
+        return improve_admm(form, x0, rho, **common)
 
     def improve(self, method, **kwargs):
         methods = method if isinstance(method, list) else [method]

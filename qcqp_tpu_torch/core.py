@@ -147,6 +147,16 @@ def max_violation_batch(form: QCQPForm, xs: torch.Tensor) -> torch.Tensor:
     return v.max(dim=1).values.clamp_min(0.0)
 
 
+def better_batch(form: QCQPForm, x1, x2, tol: float = 1e-4) -> torch.Tensor:
+    """`better` row by row for restart batches x1, x2 (R, n); equal keys
+    prefer x2."""
+    v1 = torch.floor(max_violation_batch(form, x1) / tol)
+    v2 = torch.floor(max_violation_batch(form, x2) / tol)
+    f1, f2 = eval_objective_batch(form, x1), eval_objective_batch(form, x2)
+    take1 = (v1 < v2) | ((v1 == v2) & (f1 < f2))
+    return torch.where(take1[:, None], x1, x2)
+
+
 # ---------------------------------------------------------------------------
 # Host-side helpers (numpy): random problem generators used by tests/bench.
 # ---------------------------------------------------------------------------

@@ -47,6 +47,8 @@ _SIGNATURES = {
                          _P, _I, _I, _F, _F, _I, _I, _P],
     "qk_cd_sweeps": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _F, _F,
                      _I, _I, _I, _P],
+    "qk_admm_phase": [_P] * 15 + [_I, _I, _I, _I, _I, _F, _F, _F, _F, _F,
+                                  _I, _I, _P],
 }
 
 

@@ -7,6 +7,10 @@ examples/boolean_least_squares.py:19-38).  Here a whole batch of restarts
 reference's lexicographic `better` order (violation bucket, then
 objective; qcqp/utilities.py:135-146), ties to the lowest restart index.
 
+Improve methods: COORD_DESCENT and ADMM.  On a CUDA float32 form both go
+through the kernels by default (K1 or K2 for CD, K3 for ADMM); the caller
+can pass use_fused to choose.
+
 Randomness is an explicit torch.Generator on the form's device.  Its
 normal draws are not jax.random's: tests hand both packages the same numpy
 starts instead.
@@ -22,11 +26,13 @@ from .. import settings as s
 from ..core import QCQPForm, eval_objective_batch, max_violation_batch
 from ..solvers.coord_descent import improve_coord_descent_batch
 from ..solvers.coord_descent_fused import improve_coord_descent_fused
+from ..solvers.admm import improve_admm_batch
+from ..kernels import admm_kernel
 
 
 def _fused_default(form: QCQPForm) -> bool:
-    """Whether solve_restarts routes CD through the kernels when the caller
-    did not choose: a CUDA form in float32."""
+    """Whether solve_restarts routes CD and ADMM through the kernels when
+    the caller did not choose: a CUDA form in float32."""
     return form.P.is_cuda and form.P.dtype == torch.float32
 
 
@@ -74,6 +80,22 @@ def improve_chain(form: QCQPForm, xs: torch.Tensor,
                     mega=kwargs.get("mega", None), **common)
             else:
                 xs = improve_coord_descent_batch(form, xs, **common)
+        elif method == s.ADMM:
+            common = dict(num_iters=kwargs.get("num_iters", 1000),
+                          viol_lim=kwargs.get("viol_lim", 1e4),
+                          tol=kwargs.get("admm_tol", kwargs.get("tol", 1e-2)),
+                          phase1=kwargs.get("phase1", True))
+            if kwargs.get("use_fused", False):
+                # K3 (kernels/admm_kernel.py); the one-time setup comes in
+                # admm_data when solve_restarts built it
+                xs = admm_kernel.improve_admm_fused(
+                    form, xs, rho=kwargs.get("rho", None),
+                    better_tol=kwargs.get("better_tol", 1e-4),
+                    data=kwargs.get("admm_data", None),
+                    **common).to(xs.dtype)
+            else:
+                xs = improve_admm_batch(form, xs, kwargs.get("rho", None),
+                                        **common)
         elif method in s.NOT_PORTED:
             raise s.not_ported(method)
         else:
@@ -90,8 +112,10 @@ def solve_restarts(form: QCQPForm, num_restarts: int,
     """Full pipeline: suggest -> improve chain -> best-of reduction.
 
     generator: a torch.Generator on the form's device (default: seed 0).
-    On a CUDA float32 form CD runs through the kernels unless the caller
-    passes use_fused.  Returns (x_best, f_best, viol_best) as tensors.
+    On a CUDA float32 form CD and ADMM run through the kernels unless the
+    caller passes use_fused; the fused ADMM's one-time setup
+    (kernels/admm_kernel.ADMMFusedData) is built here once.  Returns
+    (x_best, f_best, viol_best) as tensors.
     """
     if mesh is not None:
         raise NotImplementedError(
@@ -101,6 +125,11 @@ def solve_restarts(form: QCQPForm, num_restarts: int,
         generator = torch.Generator(device=form.device).manual_seed(0)
     if "use_fused" not in kwargs and _fused_default(form):
         kwargs["use_fused"] = True
+    methods = improve if isinstance(improve, list) else [improve]
+    if (kwargs.get("use_fused", False) and s.ADMM in methods
+            and "admm_data" not in kwargs and admm_kernel.takes(form)):
+        kwargs["admm_data"] = admm_kernel.ADMMFusedData(
+            form, kwargs.get("rho", None))
     xs = suggest_batch(form, num_restarts, generator, suggest)
     xs = improve_chain(form, xs, improve, **kwargs)
     return best_point(form, xs, better_tol)

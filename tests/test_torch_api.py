@@ -131,7 +131,7 @@ def test_methods_outside_the_slice_raise():
     for method in (tqt.SDR, tqt.SPECTRAL):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             h.suggest(method)
-    for method in (tqt.ADMM, tqt.DCCP, tqt.IPOPT):
+    for method in (tqt.DCCP, tqt.IPOPT):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             h.improve(method)
         with pytest.raises(NotImplementedError, match="ROADMAP"):

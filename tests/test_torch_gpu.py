@@ -1,11 +1,11 @@
-"""The CUDA kernels K1 and K2 on the card, against their plain PyTorch
+"""The CUDA kernels K1, K2 and K3 on the card, against their plain PyTorch
 versions.  Marked `gpu`: without a CUDA device every test skips.  This file
 imports neither JAX nor the JAX package, so it also runs on a machine that
 has only PyTorch:
 
     python -m pytest --noconftest -q tests/test_torch_gpu.py
 
-Both kernels are built with -fmad=false and the plain versions run one
+The kernels are built with -fmad=false and the plain versions run one
 correctly rounded operation per PyTorch op, in the kernels' order, so the
 comparisons are exact.
 """
@@ -114,6 +114,69 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(TypeError):
         k1.two_phase_sweeps(P, q, r, (), torch.zeros((8, 5), device=cuda,
                                                      dtype=torch.float64))
+
+
+def _k3_form(kind):
+    """A dense random form with equality rows, or boolean least squares
+    (semidefinite rows: K3's bracket doubling runs)."""
+    rng = np.random.default_rng(5)
+    if kind == "dense":
+        n, m = 37, 6
+        A = rng.standard_normal((m + 1, n, n)) / np.sqrt(n)
+        P = 0.5 * (A + np.swapaxes(A, -1, -2))
+        q = rng.standard_normal((m + 1, n)) / np.sqrt(n)
+        r = rng.standard_normal(m + 1)
+        return (P, q, r, rng.random(m) < 0.5), rng
+    n = 10
+    A, b = rng.standard_normal((15, n)), rng.standard_normal(15)
+    P = np.zeros((n + 1, n, n))
+    P[0] = A.T @ A
+    P[1:, np.arange(n), np.arange(n)] = np.eye(n)
+    q = np.zeros((n + 1, n))
+    q[0] = -2.0 * A.T @ b
+    r = -np.ones(n + 1)
+    r[0] = b @ b
+    return (P, q, r, np.ones(n, bool)), rng
+
+
+@pytest.mark.parametrize("kind", ["dense", "boolean"])
+def test_k3_kernel_equals_plain(cuda, kind):
+    from qcqp_tpu_torch.convert import form_from_numpy
+    from qcqp_tpu_torch.kernels import admm_kernel as tk
+    arrays, rng = _k3_form(kind)
+    form = form_from_numpy(*arrays, device=cuda, dtype=torch.float32)
+    d = tk.ADMMFusedData(form)
+    assert d.need_dbl == (kind == "boolean")
+    xs = torch.from_numpy(rng.standard_normal((37, form.n))
+                          .astype(np.float32)).to(cuda)
+    for phase in (1, 2):
+        want = tk.admm_phase_ref(d, xs, phase, num_iters=30)
+        before = tk.admm_phase.launches
+        out = tk.admm_phase(d, xs, phase, num_iters=30)
+        assert tk.admm_phase.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), phase
+        assert torch.equal(tk.admm_phase(d, xs, phase, num_iters=0), xs)
+        perm = torch.randperm(37, generator=torch.Generator().manual_seed(0))
+        perm = perm.to(cuda)
+        assert torch.equal(tk.admm_phase(d, xs[perm], phase, num_iters=30),
+                           want[perm])
+    out = tk.improve_admm_fused(form, xs, num_iters=30, data=d)
+    assert torch.equal(out, tk.improve_admm_fused_ref(form, xs, num_iters=30,
+                                                      data=d))
+
+
+def test_k3_refuses_what_it_does_not_take(cuda):
+    from qcqp_tpu_torch.convert import form_from_numpy
+    from qcqp_tpu_torch.kernels import admm_kernel as tk
+    arrays, rng = _k3_form("dense")
+    form = form_from_numpy(*arrays, device=cuda, dtype=torch.float32)
+    d = tk.ADMMFusedData(form)
+    xs = torch.from_numpy(rng.standard_normal((8, form.n))).to(cuda)
+    with pytest.raises(TypeError):
+        tk.admm_phase(d, xs, 1, num_iters=3)                 # float64
+    with pytest.raises(ValueError):
+        tk.admm_phase(d, xs.float().T.contiguous().T, 1, num_iters=3)
 
 
 def test_golden_through_handler(cuda):
