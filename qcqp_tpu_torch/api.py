@@ -7,12 +7,13 @@ constant, sync the flat iterate with the modeling variables, return
 (objective, max violation) pairs with the maximize sign convention
 un-negated on report.
 
-The port runs RANDOM suggest and the COORD_DESCENT and ADMM improves
+The port runs RANDOM suggest and the COORD_DESCENT, ADMM and DCCP improves
 (single restarts through `improve`, restart batches through `solve`).  On a
 CUDA float32 form a single-restart ADMM goes through K3, with its one-time
-setup cached per rho on the handler, as the JAX handler does.  SDR and
-SPECTRAL suggest and the DCCP and IPOPT improves raise NotImplementedError
-naming the ROADMAP item that ports them.
+setup cached per rho on the handler, and a single-restart DCCP through K4,
+with its setup cached once, as the JAX handler does.  SDR and SPECTRAL
+suggest and the IPOPT improve raise NotImplementedError naming the ROADMAP
+item that ports them.
 
 Randomness is a torch.Generator on the form's device, seeded by the `seed`
 argument; `improve` before any `suggest` auto-suggests RANDOM, as in the
@@ -28,11 +29,12 @@ import numpy as np
 import torch
 
 from . import settings as s
-from .core import default_dtype, eval_objective, max_violation
+from .core import default_device, default_dtype, eval_objective, max_violation
 from .expressions import Problem, canonicalize
-from .kernels import admm_kernel
+from .kernels import admm_kernel, ccp_kernel
 from .parallel.restarts import _fused_default, solve_restarts
 from .solvers.admm import improve_admm, min_valid_rho
+from .solvers.ccp import improve_ccp
 from .solvers.coord_descent import improve_coord_descent
 
 logger = logging.getLogger("qcqp_tpu_torch")
@@ -51,14 +53,11 @@ class QCQP:
     def __init__(self, prob: Problem, seed: int = 0, dtype=None,
                  device=None, check_dcp: bool = True):
         """device: where the form lives (default: the first CUDA device when
-        there is one, else torch's default device, as the JAX package
+        there is one, else the CPU, core.default_device, as the JAX package
         defaults to its accelerator backend).
         dtype: default float64 on the CPU, float32 on CUDA, as the JAX
         package picks by backend (qcqp_tpu/api.py:63-66)."""
-        if device is None:
-            device = ("cuda" if torch.cuda.is_available()
-                      else torch.get_default_device())
-        device = torch.device(device)
+        device = default_device(device)
         if dtype is None:
             dtype = default_dtype(device)
         logger.info("QCQP on %s, %s", device, dtype)
@@ -74,6 +73,7 @@ class QCQP:
             )
         self.generator = torch.Generator(device=device).manual_seed(seed)
         self._admm_fused = {}      # rho (or None) -> ADMMFusedData
+        self._ccp_fused = None     # CCPFusedData
 
     # -- reporting ---------------------------------------------------------
     def _report(self, x: torch.Tensor) -> tuple:
@@ -113,7 +113,32 @@ class QCQP:
             )
         if method == s.ADMM:
             return self._improve_admm(x0, **kwargs)
+        if method == s.DCCP:
+            return self._improve_ccp(x0, **kwargs)
         raise s.not_ported(method)
+
+    def _improve_ccp(self, x0: torch.Tensor, **kwargs):
+        form = self.qcqp_form
+        tau = kwargs.get("tau", 0.005)
+        if (kwargs.get("use_fused", _fused_default(form))
+                and not kwargs.get("use_eigen_split", False)
+                and ccp_kernel.takes(form)):
+            # K4, with the one-time setup cached on the handler; a single
+            # restart spends 40 inner trips by default, as the JAX handler
+            # does (qcqp_tpu/api.py:205-209)
+            if self._ccp_fused is None:
+                self._ccp_fused = ccp_kernel.CCPFusedData(form)
+            out = ccp_kernel.improve_ccp_fused(
+                form, x0[None], tau=tau, data=self._ccp_fused,
+                inner_iters=kwargs.get("inner_iters", 40),
+                **{k: v for k, v in kwargs.items()
+                   if k in ("max_iter", "mu", "tau_max", "warm_inner")})
+            return out[0].to(form.dtype)
+        return improve_ccp(
+            form, x0, tau=tau,
+            use_eigen_split=kwargs.get("use_eigen_split", False),
+            **{k: v for k, v in kwargs.items()
+               if k in ("max_iter", "mu", "tau_max", "inner_iters")})
 
     def _improve_admm(self, x0: torch.Tensor, **kwargs):
         form = self.qcqp_form

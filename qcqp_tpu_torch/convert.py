@@ -12,7 +12,7 @@ import logging
 import numpy as np
 import torch
 
-from .core import QCQPForm, default_dtype
+from .core import QCQPForm, default_device, default_dtype
 
 logger = logging.getLogger("qcqp_tpu_torch")
 
@@ -23,11 +23,11 @@ _SKIPPED = ("key", "sdr_sol", "sdr_bound", "mu", "sigma_chol",
             "spectral_sol", "spectral_bound")
 
 
-def form_from_numpy(P, q, r, is_eq, device="cpu", dtype=None) -> QCQPForm:
+def form_from_numpy(P, q, r, is_eq, device=None, dtype=None) -> QCQPForm:
     """A QCQPForm from the JAX package's form as numpy arrays, without
     re-symmetrizing (the JAX form already is), so both packages compute on
-    bit-identical data."""
-    device = torch.device(device)
+    bit-identical data.  device: core.default_device()."""
+    device = default_device(device)
     dtype = default_dtype(device) if dtype is None else dtype
     return QCQPForm(
         torch.tensor(np.asarray(P), dtype=dtype, device=device),

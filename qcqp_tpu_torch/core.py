@@ -21,6 +21,15 @@ import numpy as np
 import torch
 
 
+def default_device(device=None) -> torch.device:
+    """The device a form lands on when the caller names none: the first CUDA
+    device when there is one, else the CPU, as the JAX package puts a form
+    on its accelerator by default."""
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    return torch.device(device)
+
+
 def default_dtype(device) -> torch.dtype:
     """float64 for CPU tensors (parity with the reference's numpy), float32
     for CUDA tensors (the kernels' working type)."""
@@ -57,10 +66,10 @@ class QCQPForm(NamedTuple):
                      torch.nonzero(self.is_eq.cpu()).flatten().tolist())
 
 
-def make_form(P, q, r, is_eq, device="cpu", dtype=None) -> QCQPForm:
+def make_form(P, q, r, is_eq, device=None, dtype=None) -> QCQPForm:
     """Build a QCQPForm from array-likes, symmetrizing P rows
-    (reference: qcqp/utilities.py:333,345)."""
-    device = torch.device(device)
+    (reference: qcqp/utilities.py:333,345).  device: default_device()."""
+    device = default_device(device)
     dtype = default_dtype(device) if dtype is None else dtype
     P = torch.as_tensor(np.asarray(P), dtype=dtype, device=device)
     P = 0.5 * (P + P.transpose(-1, -2))
@@ -157,12 +166,35 @@ def better_batch(form: QCQPForm, x1, x2, tol: float = 1e-4) -> torch.Tensor:
     return torch.where(take1[:, None], x1, x2)
 
 
+def dc_split(form: QCQPForm):
+    """Difference-of-convex split of every row, P_i = P1_i - P2_i, both PSD,
+    in the reference's default diagonal-shift mode (qcqp/utilities.py:82-89):
+    if lambda_min(P) < 0, P2 = (1 - lambda_min) I and P1 = P + P2;
+    otherwise P1 = P, P2 = 0.  Returns (P1, P2), each (m+1, n, n)."""
+    lmb_min = torch.linalg.eigvalsh(form.P).min(dim=-1).values     # (m+1,)
+    shift = torch.where(lmb_min < 0, 1.0 - lmb_min,
+                        torch.zeros_like(lmb_min))
+    eye = torch.eye(form.n, dtype=form.dtype, device=form.device)
+    P2 = shift[:, None, None] * eye
+    return form.P + P2, P2
+
+
+def dc_split_eigen(form: QCQPForm):
+    """Eigen-split mode (reference: qcqp/utilities.py:77-81): P1 keeps the
+    positive eigenspace, P2 the negated negative eigenspace."""
+    lmb, Q = torch.linalg.eigh(form.P)
+    pos, neg = lmb.clamp_min(0.0), (-lmb).clamp_min(0.0)
+    P1 = torch.einsum("kij,kj,klj->kil", Q, pos, Q)
+    P2 = torch.einsum("kij,kj,klj->kil", Q, neg, Q)
+    return P1, P2
+
+
 # ---------------------------------------------------------------------------
 # Host-side helpers (numpy): random problem generators used by tests/bench.
 # ---------------------------------------------------------------------------
 
 def random_form(rng: np.random.Generator, n: int, m: int,
-                eq_frac: float = 0.5, device="cpu", dtype=None) -> QCQPForm:
+                eq_frac: float = 0.5, device=None, dtype=None) -> QCQPForm:
     """Dense random QCQP instance (all tensors O(1) scale); the same draws
     as qcqp_tpu.core.random_form for the same generator state."""
     A = rng.standard_normal((m + 1, n, n))

@@ -35,7 +35,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from .core import make_form
+from .core import default_device, default_dtype, make_form
 
 __all__ = [
     "Variable", "Problem", "Minimize", "Maximize", "Constraint",
@@ -650,16 +650,18 @@ class Problem:
         return True
 
 
-def canonicalize(prob: Problem, dtype=np.float64, device="cpu"):
+def canonicalize(prob: Problem, dtype=None, device=None):
     """Problem -> (QCQPForm, VarLayout, maximize_flag).
 
     The analog of get_qcqp_form (reference: qcqp/utilities.py:318-347):
     instead of a list of sparse QuadraticFunctions it emits one stacked dense
-    tensor batch on `device`.  `dtype` is a numpy dtype (the host arrays are
-    cast to it before symmetrization, as in the JAX package) or a torch
-    dtype of the same precision.
+    tensor batch on `device` (default: core.default_device()).  `dtype` is a
+    numpy dtype (the host arrays are cast to it before symmetrization, as in
+    the JAX package) or a torch dtype of the same precision; by default
+    float64 on the CPU and float32 on CUDA (core.default_dtype).
     """
-    np_dtype = _np_dtype(dtype)
+    device = default_device(device)
+    np_dtype = _np_dtype(default_dtype(device) if dtype is None else dtype)
     P, q, r, eqs, layout, maximize = _canonicalize_arrays(prob, np_dtype)
     form = make_form(P, q, r, eqs, device=device,
                      dtype=torch.float64 if np_dtype == np.float64

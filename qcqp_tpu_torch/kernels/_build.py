@@ -2,7 +2,8 @@
 kernels are compiled by JAX itself).
 
 The sources in `qcqp_tpu_torch/csrc/` are compiled by nvcc, at first use,
-into one shared library with a plain C interface, which ctypes loads.  The
+one nvcc process per source, all started together, and linked into one
+shared library with a plain C interface, which ctypes loads.  The
 library lands in the package's `build/` directory (listed in .gitignore)
 under a name keyed by a hash of the sources, so a checkout builds it once
 and a changed source builds anew.  Flags:
@@ -34,8 +35,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-              "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,6 +49,7 @@ _SIGNATURES = {
                      _I, _I, _I, _P],
     "qk_admm_phase": [_P] * 15 + [_I, _I, _I, _I, _I, _F, _F, _F, _F, _F,
                                   _I, _I, _P],
+    "qk_ccp_improve": [_P] * 17 + [_I] * 8 + [_F] * 8 + [_P],
 }
 
 
@@ -94,22 +95,33 @@ def _build() -> str:
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+    nvcc = _nvcc()
+    work = tempfile.mkdtemp(dir=BUILD_DIR)
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-    except BaseException:
-        os.unlink(tmp)
-        raise
-    BuildInfo.seconds = time.perf_counter() - t0
-    BuildInfo.log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{BuildInfo.log}")
-    os.replace(tmp, out)     # atomic: concurrent processes agree on one file
+        objs, procs = [], []
+        for src in _sources():
+            obj = os.path.join(work, os.path.basename(src) + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs = [(cmd, p.communicate()[0], p.returncode) for cmd, p in procs]
+        lib = os.path.join(work, "lib.so")
+        link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", lib, *objs]
+        if all(rc == 0 for _, _, rc in logs):
+            proc = subprocess.run(link, capture_output=True, text=True)
+            logs.append((link, proc.stdout + proc.stderr, proc.returncode))
+        BuildInfo.seconds = time.perf_counter() - t0
+        BuildInfo.log = "".join(log for _, log, _ in logs)
+        for cmd, log, rc in logs:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n"
+                                   f"{log}")
+        os.replace(lib, out)  # atomic: concurrent processes agree on a file
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 

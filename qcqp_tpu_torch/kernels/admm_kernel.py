@@ -247,7 +247,9 @@ def admm_phase_ref(d: ADMMFusedData, xs, phase, num_iters=1000, tol=1e-2,
                    viol_lim=1e4, better_tol=1e-4, nw=NW_TRIPS):
     """Plain PyTorch version of K3: one ADMM phase (1 = feasibility
     consensus, reference qcqp.py:195-212; 2 = objective consensus with the
-    best-point tracker, qcqp.py:215-251) of xs (R, n) float32 -> (R, n)."""
+    best-point tracker, qcqp.py:215-251) of xs (R, n) float32 -> (R, n).
+    `admm_phase_ref.lane_iters[phase]` counts the iterations run, summed
+    over lanes (a tensor after the first call)."""
     tol = float(np.float32(tol))
     viol_lim = float(np.float32(viol_lim))
     R = xs.shape[0]
@@ -261,6 +263,8 @@ def admm_phase_ref(d: ADMMFusedData, xs, phase, num_iters=1000, tol=1e-2,
             live = viol >= tol
             if not bool(live.any()):
                 break
+            admm_phase_ref.lane_iters[1] = (admm_phase_ref.lane_iters[1]
+                                            + live.sum())
             total = _consensus(d, xh, uh)
             z = torch.where(live[:, None], total / _f32(d.m, total), z)
             v_new = _project_all(d, z, xh, uh, live, nw)
@@ -276,6 +280,8 @@ def admm_phase_ref(d: ADMMFusedData, xs, phase, num_iters=1000, tol=1e-2,
         live = ~done
         if not bool(live.any()):
             break
+        admm_phase_ref.lane_iters[2] = (admm_phase_ref.lane_iters[2]
+                                        + live.sum())
         rhs = two_rho * _consensus(d, xh, uh) - d.q0
         z = torch.where(live[:, None], _rowvec(rhs, d.W), z)
         v_new = _project_all(d, z, xh, uh, live, nw)
@@ -294,6 +300,9 @@ def admm_phase_ref(d: ADMMFusedData, xs, phase, num_iters=1000, tol=1e-2,
         done = done | (live & stop)
         z_last = torch.where(live[:, None], z, z_last)
     return out
+
+
+admm_phase_ref.lane_iters = {1: 0, 2: 0}
 
 
 # ---------------------------------------------------------------------------

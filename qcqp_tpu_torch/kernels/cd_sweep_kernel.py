@@ -107,7 +107,8 @@ class _Ctx:
 
 
 def _phase1_loop(ctx, x, num_iters, tol, viol_tol, n_bisect):
-    """_phase1_loop with per-lane exits; x (n, R) is updated in place."""
+    """_phase1_loop with per-lane exits; x (n, R) is updated in place.
+    `_phase1_loop.lane_sweeps` counts the sweeps run, summed over lanes."""
     n, R = x.shape
     warm_lo = torch.full((n, R), _INF, dtype=x.dtype, device=x.device)
     warm_hi = torch.full((n, R), _INF, dtype=x.dtype, device=x.device)
@@ -117,6 +118,7 @@ def _phase1_loop(ctx, x, num_iters, tol, viol_tol, n_bisect):
         idx = torch.nonzero((viol_last >= viol_tol) & changed).flatten()
         if idx.numel() == 0:
             break
+        _phase1_loop.lane_sweeps += idx.numel()
         xa, wl, wh = x[:, idx], warm_lo[:, idx], warm_hi[:, idx]
         F = ctx.refresh_F(xa)                        # drift control
         ch = torch.zeros(idx.numel(), dtype=torch.bool, device=x.device)
@@ -186,7 +188,8 @@ def _phase2_select(blocks, xk, p0, q0, r0):
 
 
 def _phase2_loop(ctx, x, num_iters, tol, viol_tol):
-    """_phase2_loop with per-lane exits; x (n, R) is updated in place."""
+    """_phase2_loop with per-lane exits; x (n, R) is updated in place.
+    `_phase2_loop.lane_sweeps` counts the sweeps run, summed over lanes."""
     n, R = x.shape
     slack_all = ctx.max_viol(ctx.refresh_F(x))
     counter = torch.where(slack_all < viol_tol, 0, n).to(torch.int64)
@@ -194,6 +197,7 @@ def _phase2_loop(ctx, x, num_iters, tol, viol_tol):
         idx = torch.nonzero(counter < n).flatten()
         if idx.numel() == 0:
             break
+        _phase2_loop.lane_sweeps += idx.numel()
         xa, c, slack = x[:, idx], counter[idx], slack_all[idx]
         F = ctx.refresh_F(xa)
         sb = slack[None]
@@ -215,6 +219,10 @@ def _phase2_loop(ctx, x, num_iters, tol, viol_tol):
             xa[k] = v
         x[:, idx], counter[idx] = xa, c
     return x
+
+
+_phase1_loop.lane_sweeps = 0
+_phase2_loop.lane_sweeps = 0
 
 
 def two_phase_sweeps_ref(P, q, r, eq_idx, xs, num_iters=1000, viol_tol=1e-2,

@@ -154,7 +154,9 @@ def bisect_accept(feasible_point, xk, viol, tol, viol_tol, n_bisect,
                   viol_of, rel=REL_SLACK_TOL, warm=None):
     """_bisect_accept for a batch of lanes.  Returns (v, (wlo, whi)): v is
     the accepted coordinate value (xk where not accepted), (wlo, whi) the
-    lane's final bracket for the next sweep's warm start."""
+    lane's final bracket for the next sweep's warm start.  Adds the probes
+    it makes, summed over lanes, to `bisect_accept.probes` (a tensor after
+    the first call), from which chip_smoke.py counts the kernels' work."""
     es_cold = viol - viol_tol
 
     def gap_tgt(ss):
@@ -189,6 +191,7 @@ def bisect_accept(feasible_point, xk, viol, tol, viol_tol, n_bisect,
         es = torch.where(need_esc, es_cold, es)
         do = (es - ss) > gap_tgt(ss)
         sm = 0.501 * ss + 0.499 * es
+        bisect_accept.probes = bisect_accept.probes + do.sum()
         xi, exists = feasible_point(sm)
         take = do & exists
         g = viol_of(xi)
@@ -206,6 +209,9 @@ def bisect_accept(feasible_point, xk, viol, tol, viol_tol, n_bisect,
     accept = (found > 0.5) & (bs < viol) & torch.isfinite(bx)
     return (torch.where(accept, bx, xk),
             (ss, torch.where(accept, bs, _INF)))
+
+
+bisect_accept.probes = 0
 
 
 def _viol_of_generic(p, q, r, eq, act):

@@ -7,9 +7,9 @@ examples/boolean_least_squares.py:19-38).  Here a whole batch of restarts
 reference's lexicographic `better` order (violation bucket, then
 objective; qcqp/utilities.py:135-146), ties to the lowest restart index.
 
-Improve methods: COORD_DESCENT and ADMM.  On a CUDA float32 form both go
-through the kernels by default (K1 or K2 for CD, K3 for ADMM); the caller
-can pass use_fused to choose.
+Improve methods: COORD_DESCENT, ADMM and DCCP.  On a CUDA float32 form
+they go through the kernels by default (K1 or K2 for CD, K3 for ADMM, K4
+for DCCP); the caller can pass use_fused to choose.
 
 Randomness is an explicit torch.Generator on the form's device.  Its
 normal draws are not jax.random's: tests hand both packages the same numpy
@@ -26,13 +26,14 @@ from .. import settings as s
 from ..core import QCQPForm, eval_objective_batch, max_violation_batch
 from ..solvers.coord_descent import improve_coord_descent_batch
 from ..solvers.coord_descent_fused import improve_coord_descent_fused
+from ..solvers import ccp as ccp_solver
 from ..solvers.admm import improve_admm_batch
-from ..kernels import admm_kernel
+from ..kernels import admm_kernel, ccp_kernel
 
 
 def _fused_default(form: QCQPForm) -> bool:
-    """Whether solve_restarts routes CD and ADMM through the kernels when
-    the caller did not choose: a CUDA form in float32."""
+    """Whether solve_restarts routes CD, ADMM and DCCP through the kernels
+    when the caller did not choose: a CUDA form in float32."""
     return form.P.is_cuda and form.P.dtype == torch.float32
 
 
@@ -96,6 +97,25 @@ def improve_chain(form: QCQPForm, xs: torch.Tensor,
             else:
                 xs = improve_admm_batch(form, xs, kwargs.get("rho", None),
                                         **common)
+        elif method == s.DCCP:
+            tau = kwargs.get("tau", 0.005)
+            if (kwargs.get("use_fused", False)
+                    and not kwargs.get("use_eigen_split", False)):
+                # K4 (kernels/ccp_kernel.py); the one-time setup comes in
+                # ccp_data when solve_restarts built it
+                ccp_kw = {k: v for k, v in kwargs.items()
+                          if k in ("max_iter", "mu", "tau_max",
+                                   "inner_iters", "warm_inner")}
+                xs = ccp_kernel.improve_ccp_fused(
+                    form, xs, tau=tau, data=kwargs.get("ccp_data", None),
+                    **ccp_kw).to(xs.dtype)
+            else:
+                # the same filtered forwarding as QCQP._improve_one
+                ccp_kw = {k: v for k, v in kwargs.items()
+                          if k in ("max_iter", "mu", "tau_max",
+                                   "inner_iters", "use_eigen_split")}
+                xs = ccp_solver.improve_ccp_batch(form, xs, tau=tau,
+                                                  **ccp_kw)
         elif method in s.NOT_PORTED:
             raise s.not_ported(method)
         else:
@@ -112,10 +132,10 @@ def solve_restarts(form: QCQPForm, num_restarts: int,
     """Full pipeline: suggest -> improve chain -> best-of reduction.
 
     generator: a torch.Generator on the form's device (default: seed 0).
-    On a CUDA float32 form CD and ADMM run through the kernels unless the
-    caller passes use_fused; the fused ADMM's one-time setup
-    (kernels/admm_kernel.ADMMFusedData) is built here once.  Returns
-    (x_best, f_best, viol_best) as tensors.
+    On a CUDA float32 form CD, ADMM and DCCP run through the kernels unless
+    the caller passes use_fused; the one-time setups of the fused ADMM and
+    CCP (kernels/admm_kernel.ADMMFusedData, kernels/ccp_kernel.CCPFusedData)
+    are built here once.  Returns (x_best, f_best, viol_best) as tensors.
     """
     if mesh is not None:
         raise NotImplementedError(
@@ -130,6 +150,11 @@ def solve_restarts(form: QCQPForm, num_restarts: int,
             and "admm_data" not in kwargs and admm_kernel.takes(form)):
         kwargs["admm_data"] = admm_kernel.ADMMFusedData(
             form, kwargs.get("rho", None))
+    if (kwargs.get("use_fused", False) and s.DCCP in methods
+            and "ccp_data" not in kwargs
+            and not kwargs.get("use_eigen_split", False)
+            and ccp_kernel.takes(form)):
+        kwargs["ccp_data"] = ccp_kernel.CCPFusedData(form)
     xs = suggest_batch(form, num_restarts, generator, suggest)
     xs = improve_chain(form, xs, improve, **kwargs)
     return best_point(form, xs, better_tol)

@@ -24,7 +24,6 @@ improve_methods = [COORD_DESCENT, ADMM, DCCP, IPOPT]
 NOT_PORTED = {
     SDR: "ROADMAP.md Queue 1 item 6 (SDP: SDR and spectral suggest)",
     SPECTRAL: "ROADMAP.md Queue 1 item 6 (SDP: SDR and spectral suggest)",
-    DCCP: "ROADMAP.md Queue 1 item 8 (CCP, kernel K4)",
     IPOPT: "ROADMAP.md Queue 1 item 9 (NLP)",
 }
 

@@ -34,7 +34,7 @@ torch.set_num_threads(1)
 def _both(jform):
     """The JAX form and the port's form on the same float64 arrays."""
     arrays = [np.asarray(a) for a in jform]
-    return jform, form_from_numpy(*arrays)
+    return jform, form_from_numpy(*arrays, device="cpu")
 
 
 def _convex_ineq_arrays(n, m, seed):
@@ -66,7 +66,7 @@ def test_auto_rho_and_min_valid_rho_match_jax(seed):
     arrays[0] = arrays[0].copy()
     arrays[0][0] = 0.5 * (A + A.T)
     jf2 = JForm(*(jnp.asarray(a) for a in arrays))
-    tf2 = form_from_numpy(*arrays)
+    tf2 = form_from_numpy(*arrays, device="cpu")
     np.testing.assert_allclose(float(ta.auto_rho(tf2)),
                                float(ja.auto_rho(jf2)), rtol=1e-12)
     assert float(ta.min_valid_rho(tf2)) > 0
@@ -77,7 +77,7 @@ def test_auto_rho_and_min_valid_rho_match_jax(seed):
 def test_improve_admm_batch_lockstep(n, m, iters, phase1):
     arrays = _convex_ineq_arrays(n, m, seed=n + m)
     jf = JForm(*(jnp.asarray(a) for a in arrays))
-    tf = form_from_numpy(*arrays)
+    tf = form_from_numpy(*arrays, device="cpu")
     xs = np.random.default_rng(1).standard_normal((4, n))
     xj = np.asarray(ja.improve_admm_batch(jf, jnp.asarray(xs),
                                           num_iters=iters, phase1=phase1))
@@ -154,7 +154,7 @@ def test_unconstrained_path_matches_jax(convex):
     eq = np.zeros(0, bool)
     jf = JForm(jnp.asarray(P), jnp.asarray(q), jnp.asarray(r),
                jnp.asarray(eq))
-    tf = form_from_numpy(P, q, r, eq)
+    tf = form_from_numpy(P, q, r, eq, device="cpu")
     xs = rng.standard_normal((3, n))
     xj = np.asarray(ja.improve_admm_batch(jf, jnp.asarray(xs)))
     xt = ta.improve_admm_batch(tf, torch.from_numpy(xs)).numpy()

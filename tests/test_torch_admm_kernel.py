@@ -58,7 +58,7 @@ def _convex_ineq_arrays(n, m, seed):
 
 def _forms(arrays):
     jf = JForm(*(jnp.asarray(a) for a in arrays))
-    return jf, form_from_numpy(*arrays, dtype=torch.float32)
+    return jf, form_from_numpy(*arrays, device="cpu", dtype=torch.float32)
 
 
 def _jax(jf, xs, **kw):

@@ -59,7 +59,8 @@ def test_improve_chain_and_best_point_match_jax(fused):
                   for a in arrays]
         jform = JForm(*(jnp.asarray(a) for a in arrays))
     tform = form_from_numpy(
-        *arrays, dtype=torch.float32 if fused else torch.float64)
+        *arrays, device="cpu",
+        dtype=torch.float32 if fused else torch.float64)
     xs = np.random.default_rng(5).standard_normal((128, tform.n))
     xs = xs.astype(arrays[0].dtype)
     kw = dict(num_iters=40, use_fused=fused)
@@ -125,7 +126,7 @@ def test_routing_rule_wide_and_unconstrained(monkeypatch):
     phases.clear()
     P0 = np.eye(3)[None] * 2.0
     f0 = form_from_numpy(P0, np.ones((1, 3)), np.zeros(1), np.zeros(0, bool),
-                         dtype=torch.float32)
+                         device="cpu", dtype=torch.float32)
     out = admm_kernel.improve_admm_fused(f0, torch.zeros(2, 3))
     assert unfused and not phases
     np.testing.assert_allclose(out.numpy(), -0.25, atol=1e-6)

@@ -122,7 +122,7 @@ def _boolean_ls(n=10, m=15, seed=1):
 
 def _both(P, q, r, is_eq):
     return (jcore.make_form(P, q, r, is_eq),
-            tcore.make_form(P, q, r, is_eq))
+            tcore.make_form(P, q, r, is_eq, device="cpu"))
 
 
 def _quality(form, xs):

@@ -206,7 +206,7 @@ def test_fused_k2_route_matches_jax_pooled():
             eq_idx=eq_idx)
 
     def torch_fn(arrays, eq_idx, xs):
-        form = form_from_numpy(*arrays, dtype=torch.float32)
+        form = form_from_numpy(*arrays, device="cpu", dtype=torch.float32)
         return tfused.coord_descent_phase1_fused(
             form, torch.from_numpy(xs), num_iters=SWEEPS,
             eq_idx=eq_idx).numpy()
@@ -218,7 +218,7 @@ def test_improve_fused_routes():
     K2 then the unfused phase 2 on the feasible restarts; the generic K2
     variant (eq_idx=None) equals the split one."""
     arrays, eq_idx, rng = _arrays(7, 4, 13)
-    form = form_from_numpy(*arrays, dtype=torch.float32)
+    form = form_from_numpy(*arrays, device="cpu", dtype=torch.float32)
     xs = torch.from_numpy(rng.standard_normal((40, 7)).astype(F32))
     assert tfused._mega_fits(form)
     mega = tfused.improve_coord_descent_fused(form, xs, num_iters=5)
@@ -236,7 +236,8 @@ def test_improve_fused_routes():
     assert (v_m <= v0 + 1e-3).all() and (v_s <= v0 + 1e-3).all()
     # the JAX routing rule, unchanged
     big = form_from_numpy(np.zeros((2, 129, 129)), np.zeros((2, 129)),
-                          np.zeros(2), [False], dtype=torch.float32)
+                          np.zeros(2), [False], device="cpu",
+                          dtype=torch.float32)
     assert not tfused._mega_fits(big)
     assert jfused._mega_fits(JForm(*map(jnp.asarray, arrays))) == \
         tfused._mega_fits(form)

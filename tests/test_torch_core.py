@@ -23,7 +23,8 @@ RTOL = 1e-12
 
 def _forms(n, m, seed, eq_frac=0.5):
     jform = jcore.random_form(np.random.default_rng(seed), n, m, eq_frac)
-    tform = tcore.random_form(np.random.default_rng(seed), n, m, eq_frac)
+    tform = tcore.random_form(np.random.default_rng(seed), n, m, eq_frac,
+                              device="cpu")
     return jform, tform
 
 
@@ -109,10 +110,10 @@ def test_best_point_matches(seed):
 def test_form_from_numpy_is_bit_identical():
     jform, _ = _forms(6, 4, 7)
     arrays = [np.asarray(a) for a in jform]
-    tform = form_from_numpy(*arrays)
+    tform = form_from_numpy(*arrays, device="cpu")
     for got, want in zip(tform, arrays):
         np.testing.assert_array_equal(got.numpy(), want)
-    f32 = form_from_numpy(*arrays, dtype=torch.float32)
+    f32 = form_from_numpy(*arrays, device="cpu", dtype=torch.float32)
     assert f32.P.dtype == torch.float32 and f32.is_eq.dtype == torch.bool
     assert f32.eq_idx() == tuple(int(i) for i in np.nonzero(arrays[3])[0])
 
@@ -121,8 +122,8 @@ def test_default_dtype_follows_device():
     assert tcore.default_dtype("cpu") == torch.float64
     assert tcore.default_dtype("cuda") == torch.float32
     form = tcore.make_form(np.eye(2)[None].repeat(2, 0), np.zeros((2, 2)),
-                           np.zeros(2), [True])
+                           np.zeros(2), [True], device="cpu")
     assert form.dtype == torch.float64
     with pytest.raises(ValueError):
         tcore.make_form(np.zeros((2, 2, 2)), np.zeros((2, 2)), np.zeros(2),
-                        [True, False])
+                        [True, False], device="cpu")

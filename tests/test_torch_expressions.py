@@ -141,7 +141,7 @@ CASES = [boolean_ls, maxcut, circle_packing, large_square, large_mul,
 @pytest.mark.parametrize("build", CASES, ids=lambda f: f.__name__)
 def test_canonical_form_identical(build):
     jform, jlayout, jmax = jax_canonicalize(build(jqt), np.float64)
-    tform, tlayout, tmax = torch_canonicalize(build(tqt), np.float64)
+    tform, tlayout, tmax = torch_canonicalize(build(tqt), np.float64, "cpu")
     assert tform.P.dtype == torch.float64 and tform.P.device.type == "cpu"
     for name in ("P", "q", "r", "is_eq"):
         np.testing.assert_array_equal(getattr(tform, name).numpy(),
@@ -159,7 +159,7 @@ def test_canonical_form_float32(build):
     """A float32 form is the float64 host arrays cast and then symmetrized
     in float32, in both packages."""
     jform = jax_canonicalize(build(jqt), np.float32)[0]
-    tform = torch_canonicalize(build(tqt), torch.float32)[0]
+    tform = torch_canonicalize(build(tqt), torch.float32, "cpu")[0]
     assert tform.P.dtype == torch.float32
     np.testing.assert_array_equal(tform.P.numpy(), np.asarray(jform.P))
     np.testing.assert_array_equal(tform.q.numpy(), np.asarray(jform.q))
@@ -169,7 +169,7 @@ def test_layout_round_trip_and_dcp():
     X = tqt.Variable(2, 3)
     prob = tqt.Problem(tqt.Minimize(tqt.sum_squares(X[:, 0] - X[:, 2])),
                        [X >= 0])
-    _, layout, _ = torch_canonicalize(prob)
+    _, layout, _ = torch_canonicalize(prob, device="cpu")
     xflat = np.arange(6.0)
     layout.assign(xflat)
     np.testing.assert_array_equal(X.value, xflat.reshape(2, 3, order="F"))

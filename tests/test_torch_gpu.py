@@ -1,4 +1,4 @@
-"""The CUDA kernels K1, K2 and K3 on the card, against their plain PyTorch
+"""The CUDA kernels K1, K2, K3 and K4 on the card, against their plain PyTorch
 versions.  Marked `gpu`: without a CUDA device every test skips.  This file
 imports neither JAX nor the JAX package, so it also runs on a machine that
 has only PyTorch:
@@ -194,3 +194,78 @@ def test_golden_through_handler(cuda):
     f, v = h.solve(num_restarts=256, num_iters=50)
     assert two_phase_sweeps.launches == before + 1
     assert v < 1e-2 and 35.551 - 0.1 <= f <= 35.551 + 2e-2
+
+
+def _k4_form(kind):
+    """Forms for K4: dense random with equality rows (n <= 128: 8 lanes a
+    thread), wide (n > 128: 16 lanes a thread), boolean least squares
+    (every row an equality) and no constraints (m = 0)."""
+    rng = np.random.default_rng(6)
+    if kind == "boolean":
+        return _k3_form("boolean")[0], rng
+    n, m = {"dense": (37, 6), "wide": (150, 3), "m0": (12, 0)}[kind]
+    A = rng.standard_normal((m + 1, n, n)) / np.sqrt(n)
+    P = 0.5 * (A + np.swapaxes(A, -1, -2))
+    q = rng.standard_normal((m + 1, n)) / np.sqrt(n)
+    r = rng.standard_normal(m + 1)
+    return (P, q, r, rng.random(m) < 0.5), rng
+
+
+@pytest.mark.parametrize("kind", ["dense", "wide", "boolean", "m0"])
+def test_k4_kernel_equals_plain(cuda, kind):
+    from qcqp_tpu_torch.convert import form_from_numpy
+    from qcqp_tpu_torch.kernels import ccp_kernel as tk
+    arrays, rng = _k4_form(kind)
+    form = form_from_numpy(*arrays, device=cuda, dtype=torch.float32)
+    d = tk.CCPFusedData(form)
+    xs = torch.from_numpy(rng.standard_normal((130, form.n))
+                          .astype(np.float32)).to(cuda)
+    kw = dict(max_iter=4, inner_iters=5)
+    want = tk.ccp_improve_ref(d, xs, **kw)
+    before = tk.ccp_improve.launches
+    out = tk.ccp_improve(d, xs, **kw)
+    assert tk.ccp_improve.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert torch.equal(tk.ccp_improve(d, xs, max_iter=0), xs)
+    # lanes permuted inside the first tile, then whole tiles permuted
+    # (the last tile is ragged: 2 real lanes and 62 zero lanes)
+    perm = torch.cat([torch.randperm(64, generator=torch.Generator()
+                                     .manual_seed(1)),
+                      torch.arange(64, 130)]).to(cuda)
+    assert torch.equal(tk.ccp_improve(d, xs[perm], **kw), want[perm])
+    tiles = torch.cat([torch.arange(64, 128), torch.arange(64),
+                       torch.arange(128, 130)]).to(cuda)
+    assert torch.equal(tk.ccp_improve(d, xs[tiles], **kw), want[tiles])
+    fused = tk.improve_ccp_fused(form, xs, data=d, **kw)
+    assert torch.equal(fused, tk.improve_ccp_fused_ref(form, xs, data=d,
+                                                       **kw))
+
+
+def test_k4_refuses_what_it_does_not_take(cuda):
+    from qcqp_tpu_torch.convert import form_from_numpy
+    from qcqp_tpu_torch.kernels import ccp_kernel as tk
+    arrays, rng = _k4_form("dense")
+    form = form_from_numpy(*arrays, device=cuda, dtype=torch.float32)
+    d = tk.CCPFusedData(form)
+    xs = torch.from_numpy(rng.standard_normal((8, form.n))).to(cuda)
+    with pytest.raises(TypeError):
+        tk.ccp_improve(d, xs, max_iter=2)                    # float64
+    with pytest.raises(ValueError):
+        tk.ccp_improve(d, xs.float().T.contiguous().T, max_iter=2)
+
+
+def test_k4_golden_through_handler(cuda):
+    """QCQP(prob).improve(DCCP) on the default device goes through K4 once
+    (tests/test_ccp_pallas.py:99-125)."""
+    import qcqp_tpu_torch as qt
+    from qcqp_tpu_torch.kernels import ccp_kernel as tk
+    x = qt.Variable(3)
+    prob = qt.Problem(qt.Minimize(qt.sum_squares(x)), [qt.square(x) == 1])
+    h = qt.QCQP(prob)
+    assert h.device.type == "cuda"
+    h.suggest(qt.RANDOM)
+    before = tk.ccp_improve.launches
+    f, v = h.improve(qt.DCCP)
+    assert tk.ccp_improve.launches == before + 1
+    assert v < 1e-2

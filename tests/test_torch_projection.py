@@ -110,7 +110,7 @@ def test_project_all_matches_jax(seed):
     je = jp.precompute_eigh(jf)
     xj = np.asarray(jax.vmap(lambda zz: jp.project_all(
         zz, je, jf.r[1:], jf.is_eq))(jnp.asarray(z)))
-    tf = form_from_numpy(P, q, r, is_eq)
+    tf = form_from_numpy(P, q, r, is_eq, device="cpu")
     te = tp.precompute_eigh(tf)
     xt = tp.project_all(torch.from_numpy(z), te, tf.r[1:], tf.is_eq)
     np.testing.assert_allclose(xt.numpy(), xj, atol=ATOL, rtol=0)
