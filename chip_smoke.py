@@ -4,11 +4,13 @@ from the repository root, on a machine with one NVIDIA H100 and the CUDA
 toolkit).
 
 Phases, each printing one JSON line; any failed check raises, so the script
-exits non-zero:
+exits non-zero.  nvcc builds the kernels from qcqp_tpu_torch/csrc in a
+thread at the start, while the three longest plain-version runs, which
+launch no kernel, go first (`plain_runs`: the plain versions that phases
+5, 9 and 10 hold K1 and K4 against):
 
   1. device    the card (nvidia-smi name and power limit), torch and CUDA
-               versions; builds the CUDA kernels from qcqp_tpu_torch/csrc
-               with nvcc and reports the build time;
+               versions, the build time and ptxas' report;
   2. k2        K2 (csrc/onevar_phase1.cu) against its plain PyTorch version
                on the card, generic and split (with the bench form's
                equality rows), m = 50, R = 10,240, then on
@@ -17,7 +19,7 @@ exits non-zero:
                sides);
   3. k1        K1 (csrc/cd_sweep.cu) against its plain version on the bench
                form (n = 100, m = 50, seed 0), R = 1,024 numpy starts,
-               3 sweeps, and on boolean least squares (where phase 2 runs),
+               2 sweeps, and on boolean least squares (where phase 2 runs),
                10 sweeps: identity at num_iters=0, every lane bit for bit
                equal to the plain version's, the statistical margins of
                tests/test_cd_sweep_pallas.py:104-110, and restart-permutation
@@ -30,8 +32,9 @@ exits non-zero:
   5. main_path solve_restarts on the bench form, R = 10,240, 10 sweeps,
                RANDOM starts from a seeded torch.Generator: K1's route
                (default) and K2's route (mega=False), times, restarts/s,
-               best (f, v) and launch counts; then K1 alone and its plain
-               version on the first solve's starts at the same shape: K1
+               best (f, v) and launch counts; then K1 alone (twice) and
+               its plain version on the first solve's starts at the same
+               shape: K1
                must give that solve's best point and equal the plain
                version bit for bit (and within the margins above);
   6. k3        K3 (csrc/admm.cu) against its plain version on the card,
@@ -66,10 +69,11 @@ exits non-zero:
                instance of tests/test_ccp_pallas.py:44-74 (>= 6 of 8
                restarts feasible); ptxas' registers, spills and stack;
  10. ccp_path  solve_restarts(improve=DCCP) on the bench form at R = 128 and
-               10,240 from a seeded torch.Generator: ms per solve (3 after
-               a warm-up), restarts/s, best (f, v), K4's launch count and
-               the host set-up time; then K4 alone on the first timed
-               solve's starts, which must give that solve's best point
+               10,240 from a seeded torch.Generator: ms per solve (after
+               a warm-up, 2 solves at R = 128 and 1 at R = 10,240),
+               restarts/s, best (f, v), K4's launch count and the host
+               set-up time; then K4 alone on the first timed solve's
+               starts, which must give that solve's best point
                (phase 9 held every lane of the R = 128 starts; at 10,240
                tiles 0, 1 and the last are held against the plain version
                bit for bit), and the bound from the trips K4 ran;
@@ -80,16 +84,46 @@ exits non-zero:
                launch, violation < 1e-2, objective at most 39.92, the
                plain version's on the CPU; the brute-force optimum is
                35.551).
+ 12. k5        K5 (csrc/eigh_jacobi.cu) against its plain version on the
+               card, eigenvalues and eigenvectors bit for bit: B = 16 at
+               n0 = 24, B = 132 at n0 = 101, a ragged B = 5 at n0 = 16 and
+               B = 2 at n0 = 200 (the global-memory code), at 8 and 2
+               sweeps, and round counts that are no multiple of n - 1; at
+               8 sweeps both wrappers against LAPACK (1e-4 of the scale,
+               tests/test_eigh_pallas.py:31-37) and eigh_jacobi against
+               its matmul plain version; ptxas' registers and spills; the
+               times of K5, its plain version and torch.linalg.eigh at
+               B = 1 and 132, n0 = 101, 2 sweeps;
+ 13. sdr_path  the n = 100 boolean-least-squares SDR (bench.py:287-305):
+               the default float32 route (Newton-Schulz) through
+               solve_sdr(device="device"), which must pass the acceptance
+               gate; the vec route's first 20 iterations bit for bit
+               against the same loop with K5's plain version; then, with
+               K5's count set to 0, solve_sdr_batch(psd_method="vec",
+               fallback=False) on the S = 16, n = 24 bank of
+               bench.py:337-355 (its first 20 iterations also bit for bit)
+               and on S = 132 drifted n = 100 instances: ms, iterations/s,
+               K5 launches, accept rate, worst residual.  No float64
+               re-solve runs in this phase;
+ 14. sdr_golden  solve_sdr(device="device") on the forms of
+               tests/tpu_smoke.py:107-128 (boolean LS 28.750, maxcut
+               -57.207, circle packing -5.000) and QCQP(prob).suggest(SDR)
+               on boolean LS, each accepted by the gate with no float64
+               re-solve; QCQP.solve(256, suggest=SDR, improve=COORD_DESCENT)
+               through K1 to 35.550; one solve_sdr_batch(psd_method="vec")
+               with its float64 fallback on the S = 16 bank, whose counter
+               must rise once per instance the gate rejects.
 
-Then the card's line from nvidia-smi, the kernels' JSON line (time, plain
-time, bound and launches of each kernel), and the result line
-{"ok": true, "device": {...}}.  Without a CUDA device, or outside a
-checkout of the repository, it fails before printing anything.
+Then the seconds each phase took, the card's line from nvidia-smi, the
+kernels' JSON line (time, plain time, bound and launches of each kernel),
+and the result line {"ok": true, "device": {...}}.  Without a CUDA device,
+or outside a checkout of the repository, it fails before printing anything.
 
 `python3 chip_smoke.py --profile` adds, before those last lines, a
 torch.profiler breakdown of one solve per route (CD through K1 and through
 K2 at R = 10,240; ADMM through K3 at R = 1,024 and 10,240; DCCP through K4
-at R = 128 and 10,240): kernel time by kernel name, against the unprofiled
+at R = 128 and 10,240; the n = 100 SDR's Newton-Schulz and vec routes, 200
+iterations each): kernel time by kernel name, against the unprofiled
 solve's wall time; then K1's time at R = 256 ... 40,960 restarts.
 """
 
@@ -104,11 +138,12 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 N, M, R_MAIN, SWEEPS = 100, 50, 10240, 10     # bench.py:24-27
-R_K1_CHECK, K1_CHECK_SWEEPS = 1024, 3
+R_K1_CHECK, K1_CHECK_SWEEPS = 1024, 2
 R_K3_CHECK, ADMM_ITERS = 1024, 50             # bench.py:209-210
 R_ADMM = (1024, 10240)                        # bench.py's ADMM shape; 10^4
 R_ADMM_GOLDEN = 256
 R_CCP = (128, 10240)                          # bench.py:240; 10^4
+CCP_REPEATS = {128: 2, 10240: 1}              # timed solves per R
 R_CCP_GOLDEN, CCP_GOLDEN_F_MAX = 256, 39.92
 
 
@@ -133,20 +168,23 @@ def boolean_ls_data(n=10, m=15):
     return rs.randn(m, n), rs.randn(m, 1).ravel()
 
 
-def boolean_ls_arrays():
-    """examples/boolean_least_squares.py as (P, q, r, is_eq) arrays."""
-    A, b = boolean_ls_data()
+def bls_arrays(A, b):
+    """min ||A x - b||^2 s.t. x_i^2 == 1 as (P, q, r, is_eq) arrays."""
     n = A.shape[1]
     P = np.zeros((n + 1, n, n))
     P[0] = A.T @ A
+    i = np.arange(n)
+    P[1 + i, i, i] = 1.0                      # x_i^2 == 1
     q = np.zeros((n + 1, n))
     q[0] = -2.0 * A.T @ b
-    r = np.zeros(n + 1)
-    r[0] = b @ b
-    for i in range(n):
-        P[1 + i, i, i] = 1.0
-    r[1:] = -1.0
+    r = -np.ones(n + 1)
+    r[0] = float(b @ b)
     return P, q, r, np.ones(n, bool)
+
+
+def boolean_ls_arrays():
+    """examples/boolean_least_squares.py as (P, q, r, is_eq) arrays."""
+    return bls_arrays(*boolean_ls_data())
 
 
 def cuda_ms(fn, reps):
@@ -279,7 +317,9 @@ def phase_k2(bench_is_eq):
 
 def _viols_objs(P, q, r, is_eq, xs):
     xs = xs.astype(np.float64)
-    f = (np.einsum("ri,kij,rj->rk", xs, P, xs, optimize=True)
+    # one matrix product per row of the form: 30x faster on the host than
+    # the single three-operand einsum at R = 10,240
+    f = (np.stack([np.einsum("ri,ri->r", xs @ Pk, xs) for Pk in P], axis=1)
          + xs @ q.T + r)
     v = f[:, 1:]
     viol = np.where(is_eq, np.abs(v), np.maximum(v, 0.0))
@@ -355,7 +395,7 @@ def phase_k1(arrays):
             "ms": ms_k, "plain_ms": ms_p}
         if name == "two_phase":
             x_main = xk
-    # No bench lane is viol_tol-feasible after 3 sweeps, so phase 2 never
+    # No bench lane is viol_tol-feasible after 2 sweeps, so phase 2 never
     # runs above; on boolean least squares most lanes reach it.
     Pb, qb, rb, eqb = boolean_ls_arrays()
     Pbt, qbt, rbt = (torch.tensor(a, dtype=torch.float32, device="cuda")
@@ -418,14 +458,11 @@ def phase_golden():
         raise AssertionError("QCQP.solve did not go through K1")
 
 
-def phase_main(arrays):
+def phase_main(arrays, plain):
     import torch
     from qcqp_tpu_torch.convert import form_from_numpy
-    from qcqp_tpu_torch.kernels import cd_sweep_kernel as k1
-    from qcqp_tpu_torch.kernels.cd_sweep_kernel import two_phase_sweeps_ref
     from qcqp_tpu_torch.kernels.cd_sweep_kernel import two_phase_sweeps
-    from qcqp_tpu_torch.kernels.onevar_kernel import (
-        bisect_accept, phase1_coordinate_update)
+    from qcqp_tpu_torch.kernels.onevar_kernel import phase1_coordinate_update
     from qcqp_tpu_torch.parallel.restarts import (best_point, solve_restarts,
                                                   suggest_batch)
     P, q, r, is_eq = arrays
@@ -455,8 +492,9 @@ def phase_main(arrays):
     if k1_launches != 3 or launches["k2"] < N:
         raise AssertionError(f"main path launch counts {launches}")
 
-    # K1 alone and its plain version on the starts of the first timed
-    # solve (seed 1), at the main path's shape; kernel, plain, kernel
+    # K1 alone on the starts of the first timed solve (seed 1), at the
+    # main path's shape, twice; its plain version ran on the same starts
+    # while the kernels were built (plain_runs)
     xs = suggest_batch(form, R_MAIN,
                        torch.Generator(device="cuda").manual_seed(1))
     eq_idx = form.eq_idx()
@@ -465,16 +503,13 @@ def phase_main(arrays):
         return two_phase_sweeps(form.P, form.q, form.r, eq_idx, xs,
                                 num_iters=SWEEPS)
     ms_k1_a, x_k1 = host_ms(k1_alone)
-    k1._phase1_loop.lane_sweeps = k1._phase2_loop.lane_sweeps = 0
-    bisect_accept.probes = 0
-    ms_plain, x_plain = host_ms(lambda: two_phase_sweeps_ref(
-        form.P, form.q, form.r, eq_idx, xs, num_iters=SWEEPS))
-    sweeps = k1._phase1_loop.lane_sweeps + k1._phase2_loop.lane_sweeps
+    ms_k1_b, _ = host_ms(k1_alone)
+    x_plain, ms_plain = plain["k1_main"]["x"], plain["k1_main"]["ms"]
+    sweeps, probes = (plain["k1_main"][k] for k in ("lane_sweeps", "probes"))
     E = len(eq_idx)
     ops = (sweeps * ((M + 1) * (2 * N * N + 2 * N) + N * 2 * (M + 1) * N)
-           + int(bisect_accept.probes) * (M + E) * C_ROW)
+           + probes * (M + E) * C_ROW)
     nbytes = 4 * ((M + 1) * N * N + (M + 1) * N + (M + 1) + 2 * R_MAIN * N)
-    ms_k1_b, _ = host_ms(k1_alone)
     xb, fb, vb = best_point(form, x_k1)
     if not (torch.equal(xb, results[0][0]) and torch.equal(fb, results[0][1])
             and torch.equal(vb, results[0][2])):
@@ -506,8 +541,7 @@ def phase_main(arrays):
                           **agree,
                           "plain_best_f": float(fp),
                           "plain_best_viol": float(vp),
-                          "lane_sweeps": sweeps,
-                          "probes": int(bisect_accept.probes)},
+                          "lane_sweeps": sweeps, "probes": probes},
           "launches": launches})
     return (launches, ms_main, (ms_k1_a + ms_k1_b) / 2, ms_plain, k1_err,
             bound(ops, nbytes))
@@ -832,19 +866,7 @@ def _k4_agrees(name, xk, xp):
 def boolean_ls6_arrays():
     """tests/test_ccp_pallas.py:44-62: boolean least squares, n = 6,
     m = 9 data rows (np.random.seed(1))."""
-    rs = np.random.RandomState(1)
-    n, m = 6, 9
-    A, b = rs.randn(m, n), rs.randn(m, 1).ravel()
-    P = np.zeros((n + 1, n, n))
-    P[0] = A.T @ A
-    for i in range(n):
-        P[1 + i, i, i] = 1.0
-    q = np.zeros((n + 1, n))
-    q[0] = -2.0 * A.T @ b
-    r = np.zeros(n + 1)
-    r[0] = float(b @ b)
-    r[1:] = -1.0
-    return P, q, r, np.ones(n, bool)
+    return bls_arrays(*boolean_ls_data(n=6, m=9))
 
 
 def _ptxas(kernel_tag):
@@ -859,7 +881,7 @@ def _ptxas(kernel_tag):
     return out
 
 
-def phase_k4(arrays):
+def phase_k4(arrays, plain):
     """K4 against its plain version on the card, every lane bit for bit:
     the bench form at R = 128 (fused defaults) on the starts of the DCCP
     path's first timed solve at that R, boolean least squares, identity at
@@ -883,8 +905,9 @@ def phase_k4(arrays):
         raise AssertionError("K4 with max_iter=0 is not the identity")
     ms_k, xk = host_ms(lambda: ccp_improve(d, xs))
     trips = ccp_improve.trips.clone()
-    ms_p, xp = host_ms(lambda: ccp_improve_ref(d, xs))
-    if not torch.equal(trips, ccp_improve_ref.trips):
+    # the plain version ran on the same starts while the kernels were built
+    xp, ms_p = plain["k4_bench"]["x"], plain["k4_bench"]["ms"]
+    if not torch.equal(trips, plain["k4_bench"]["trips"]):
         raise AssertionError("K4's trip counts differ from the plain "
                              "version's")
     res["bench"] = {"R": R_CCP[0], **_k4_agrees("bench", xk, xp),
@@ -935,7 +958,7 @@ def phase_k4(arrays):
             "bound_by": b["bound_by"]}
 
 
-def phase_ccp_path(arrays):
+def phase_ccp_path(arrays, plain):
     """solve_restarts(improve=DCCP) on the bench form at R = 128 and
     10,240; then K4 alone on the first timed solve's starts, whole tiles of
     it held against the plain version."""
@@ -943,8 +966,7 @@ def phase_ccp_path(arrays):
     import qcqp_tpu_torch as qt
     from qcqp_tpu_torch.convert import form_from_numpy
     from qcqp_tpu_torch.core import better_batch
-    from qcqp_tpu_torch.kernels.ccp_kernel import (
-        CCPFusedData, ccp_improve, ccp_improve_ref)
+    from qcqp_tpu_torch.kernels.ccp_kernel import CCPFusedData, ccp_improve
     from qcqp_tpu_torch.parallel.restarts import (best_point, solve_restarts,
                                                   suggest_batch)
     form = form_from_numpy(*arrays, device="cuda", dtype=torch.float32)
@@ -959,15 +981,15 @@ def phase_ccp_path(arrays):
     runs = {}
     for R in R_CCP:
         times, results = [], []
-        for seed in (1, 2, 3):
+        for seed in range(1, 1 + CCP_REPEATS[R]):
             ms, res = host_ms(lambda: solve(seed, R))
             times.append(ms)
             results.append(res)
         runs[R] = (times, results)
     launches = ccp_improve.launches
-    if launches != 3 * len(R_CCP):
+    if launches != sum(CCP_REPEATS.values()):
         raise AssertionError(f"DCCP path: {launches} K4 launches, expected "
-                             f"{3 * len(R_CCP)}")
+                             f"{sum(CCP_REPEATS.values())}")
     for _, results in runs.values():
         for (x, f, v) in results:
             if not (torch.isfinite(x).all() and x.shape == (N,)
@@ -997,13 +1019,12 @@ def phase_ccp_path(arrays):
             # phase k4 held every lane of these starts
             alone[R]["tiles_checked"] = "all, in phase k4"
             continue
-        tiles = sorted({0, 1, R // 64 - 1})
-        rows = torch.cat([torch.arange(64 * t, 64 * t + 64)
-                          for t in tiles]).cuda()
-        ms_p, x_p = host_ms(lambda: ccp_improve_ref(d, xs[rows]))
-        alone[R].update(tiles_checked=tiles, plain_ms_tiles=ms_p,
-                        **_k4_agrees(f"DCCP path, R = {R}", x_raw[rows],
-                                     x_p))
+        # the plain version ran on these tiles of the same starts while
+        # the kernels were built
+        t = plain["k4_tiles"]
+        alone[R].update(tiles_checked=t["tiles"], plain_ms_tiles=t["ms"],
+                        **_k4_agrees(f"DCCP path, R = {R}", x_raw[t["rows"]],
+                                     t["x"]))
     emit({"phase": "ccp_path", "n": N, "m": M, "E": d.E,
           **{f"R={R}": {"ms_per_solve": t,
                         "restarts_per_s": R / float(np.median(t)) * 1e3,
@@ -1072,6 +1093,383 @@ def phase_ccp_golden():
         raise AssertionError(f"solve(improve=DCCP): ({f2}, {v2})")
 
 
+
+# -- K5 and the SDR path ----------------------------------------------------
+
+# (B, n0, sweeps, rounds): the banks' shapes at the wrapper's default 8
+# sweeps and the vec route's 2, a ragged batch, the global-memory code
+# (n0 = 200 pads to 256), and round counts that are no multiple of n - 1
+K5_CASES = [(16, 24, 8, None), (16, 24, 2, None), (132, 101, 8, None),
+            (132, 101, 2, None), (5, 16, 8, None), (2, 200, 8, None),
+            (2, 200, 2, None), (3, 24, 2, 57), (2, 200, 1, 300)]
+SDR_N = 100                        # bench.py:287-305
+SDR_BANK_ITERS = 2000              # the vec banks' fixed budget
+LOCKSTEP_ITERS = 20
+
+
+def k5_bound(B, n0, rounds):
+    """Operations: only the pairs of two real rows need work.  A pair with
+    a padded slot has c == 0, so its rotation is the identity, and the
+    padded rows and columns of A and V stay zero.  A real pair costs its
+    parameters (15 operations) and three two-sided updates (A's rows, A's
+    columns, V's columns) of 2 x n0 elements at 3 operations each: 18 n0.
+    The pairs are counted by replaying the tournament at the padded n.
+    Bytes: A in, lam and V out."""
+    from qcqp_tpu_torch.kernels.eigh_kernel import (_padded,
+                                                    tournament_permutation)
+    n = _padded(n0)
+    sig, slot, pairs = tournament_permutation(n), np.arange(n), 0
+    for _ in range(rounds):
+        real = slot < n0
+        pairs += int((real[0::2] & real[1::2]).sum())
+        slot = slot[sig]
+    out = bound(B * pairs * (18 * n0 + 15), 4 * B * (2 * n0 * n0 + n0))
+    out["real_pairs_per_matrix"] = pairs
+    return out
+
+
+def _sym_batch(rng, B, n0):
+    import torch
+    A = rng.standard_normal((B, n0, n0))
+    return torch.from_numpy((0.5 * (A + np.swapaxes(A, -1, -2)))
+                            .astype(np.float32)).cuda()
+
+
+def phase_k5():
+    """K5 against its plain version on the card, lam and V bit for bit;
+    LAPACK-level accuracy; the K5b wrapper against its matmul plain
+    version; times against torch.linalg.eigh."""
+    import torch
+    from qcqp_tpu_torch.kernels.eigh_kernel import (
+        eigh_jacobi, eigh_jacobi_ref, eigh_jacobi_vec, eigh_jacobi_vec_ref)
+    rng = np.random.default_rng(12)
+    res, worst = {}, 0.0
+    for B, n0, sweeps, rounds in K5_CASES:
+        A = _sym_batch(rng, B, n0)
+        lam, V = eigh_jacobi_vec(A, sweeps=sweeps, _rounds=rounds)
+        lam_p, V_p = eigh_jacobi_vec_ref(A, sweeps=sweeps, _rounds=rounds)
+        torch.cuda.synchronize()
+        err = max(float((lam - lam_p).abs().max()),
+                  float((V - V_p).abs().max()))
+        key = f"B={B},n0={n0},sweeps={sweeps},rounds={rounds}"
+        if not (torch.equal(lam, lam_p) and torch.equal(V, V_p)):
+            raise AssertionError(f"K5 disagrees with its plain version at "
+                                 f"{key}: max |d| {err}")
+        worst = max(worst, err)
+        out = {"identical": True}
+        if sweeps == 8 and rounds is None:
+            # converged: tests/test_eigh_pallas.py:31-37's 1e-4 of scale
+            # against LAPACK, for K5 through both wrappers; eigh_jacobi's
+            # plain version (jacobi_sweeps) rounds its J^T A J products
+            # differently from K5's elementwise rotations, so the two agree
+            # to that tolerance, not bit for bit.  The matmul version's own
+            # float32 error grows with n and passes 1e-4 at n = 256
+            # (recorded there, checked up to n = 128).
+            lam_l, _ = torch.linalg.eigh(A)
+            scale = float(lam_l.abs().max())
+            eye = torch.eye(n0, device="cuda")
+            l_b, V_b = eigh_jacobi(A, sweeps=8)
+            l_m, V_m = eigh_jacobi_ref(A, 8)
+            if not (torch.equal(l_b, lam) and torch.equal(V_b, V)):
+                raise AssertionError(f"eigh_jacobi at {key} is not the "
+                                     "kernel eigh_jacobi_vec launches")
+            for name, (l_, V_) in (("k5", (lam, V)),
+                                   ("k5b_plain", (l_m, V_m))):
+                rec = V_ @ torch.diag_embed(l_) @ V_.transpose(-1, -2)
+                errs = [float((l_ - lam_l).abs().max()) / scale,
+                        float((rec - A).abs().max()) / scale,
+                        float((V_.transpose(-1, -2) @ V_ - eye).abs().max())]
+                out[f"{name}_vs_lapack"] = errs
+                if max(errs) >= 1e-4 and (name == "k5" or n0 <= 128):
+                    raise AssertionError(f"{name} at {key}: errors {errs} "
+                                         "against LAPACK")
+            out["k5b_vs_plain_lam"] = float((l_b - l_m).abs().max() / scale)
+            if out["k5b_vs_plain_lam"] >= 1e-4 and n0 <= 128:
+                raise AssertionError(f"eigh_jacobi at {key} is off its "
+                                     "plain version")
+        res[key] = out
+    times = {}
+    for B in (1, 132):
+        A = _sym_batch(rng, B, 101)
+        times[f"B={B}"] = {
+            "ms": cuda_ms(lambda: eigh_jacobi_vec(A, sweeps=2), 20),
+            "plain_ms": cuda_ms(lambda: eigh_jacobi_vec_ref(A, sweeps=2), 1),
+            "library_ms": cuda_ms(lambda: torch.linalg.eigh(A),
+                                  20 if B == 1 else 3),
+            **k5_bound(B, 101, 2 * 127)}
+    x = 1.0 + 3.0 * torch.rand(1 << 20, device="cuda")
+    emit({"phase": "k5", "cases": res, "times_N101_2sweeps": times,
+          "ptxas": _ptxas("eigh_kernel"),
+          # why the kernel and its plain version take 1 / sqrt for the
+          # JAX code's lax.rsqrt: torch.rsqrt rounds differently
+          "rsqrt_ne_one_over_sqrt_of_2e20": int(
+              (torch.rsqrt(x) != 1.0 / torch.sqrt(x)).sum())})
+    return {"max_abs_err": worst, "times": times}
+
+
+def bls_sdr_arrays(n=SDR_N, seed=2):
+    """The n = 100 boolean-least-squares SDR of bench.py:287-305."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((n + 20, n))
+    return bls_arrays(A, rng.standard_normal(n + 20))
+
+
+def drifted_bank(S, ns, seed=5):
+    """bench.py:337-355's bank of S drifted boolean-LS instances at n = ns
+    (the same draws in the same order), built on the card in float32."""
+    import torch
+    from qcqp_tpu_torch.core import QCQPForm
+    rng = np.random.default_rng(seed)
+    base_A = rng.standard_normal((ns + 8, ns))
+    P = torch.zeros((S, ns + 1, ns, ns), dtype=torch.float32, device="cuda")
+    q = torch.zeros((S, ns + 1, ns), dtype=torch.float32, device="cuda")
+    r = -torch.ones((S, ns + 1), dtype=torch.float32, device="cuda")
+    idx = torch.arange(ns, device="cuda")
+    P[:, 1 + idx, idx, idx] = 1.0
+    for si in range(S):
+        A_s = base_A + 0.05 * rng.standard_normal((ns + 8, ns))
+        b_s = rng.standard_normal(ns + 8)
+        P[si, 0] = torch.from_numpy(A_s.T @ A_s)
+        q[si, 0] = torch.from_numpy(-2.0 * A_s.T @ b_s)
+        r[si, 0] = float(b_s @ b_s)
+    return QCQPForm(P, q, r, torch.ones((S, ns), dtype=torch.bool,
+                                        device="cuda"))
+
+
+def _lockstep(name, run):
+    """run() through K5, then with K5's plain version in its place: the
+    outputs (X, primal and dual residuals) bit for bit."""
+    import torch
+    from qcqp_tpu_torch.kernels import eigh_kernel
+    ms, kern = host_ms(run)
+    kernel_fn = eigh_kernel.eigh_jacobi_vec
+    eigh_kernel.eigh_jacobi_vec = eigh_kernel.eigh_jacobi_vec_ref
+    try:
+        plain = run()
+    finally:
+        eigh_kernel.eigh_jacobi_vec = kernel_fn
+    for a, b in zip(kern, plain):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: the first {LOCKSTEP_ITERS} "
+                                 "iterations differ between K5 and its "
+                                 "plain version")
+    return {"iterations": LOCKSTEP_ITERS, "identical": True, "ms": ms,
+            "max_res": float(torch.maximum(kern[1], kern[2]).max())}
+
+
+def _bank_run(stacked):
+    """solve_sdr_batch(psd_method="vec", fallback=False) at the fixed
+    budget: nothing re-solved, the accept rate as the gate found it."""
+    import torch
+    from qcqp_tpu_torch.kernels.eigh_kernel import eigh_jacobi_vec
+    from qcqp_tpu_torch.solvers import sdp
+    S = stacked.P.shape[0]
+    before = eigh_jacobi_vec.launches
+    ms, (X, obj, rp, rd, acc) = host_ms(lambda: sdp.solve_sdr_batch(
+        stacked, max_iters=SDR_BANK_ITERS, psd_method="vec", fallback=False,
+        return_accept=True))
+    launches = eigh_jacobi_vec.launches - before
+    if not (bool(torch.isfinite(X).all())
+            and X.shape == (S, stacked.n + 1, stacked.n + 1)):
+        raise AssertionError("solve_sdr_batch returned non-finite values")
+    return {"S": S, "n": stacked.n, "max_iters": SDR_BANK_ITERS, "ms": ms,
+            "iterations_per_s": launches / ms * 1e3,
+            "k5_launches": launches, "accepted": int(acc.sum()),
+            "accept_rate": float(acc.mean()),
+            "max_res": float(torch.maximum(rp, rd).max()),
+            "bounds_first": [float(v) for v in obj[:3]]}, acc
+
+
+def phase_sdr_path():
+    """The n = 100 boolean-LS SDR on the default (Newton-Schulz) route and
+    the vec route's first iterations against K5's plain version; then the
+    K5 path: solve_sdr_batch(psd_method="vec", fallback=False) on the
+    S = 16 and S = 132 banks, with the launch counts set to 0 before and
+    read after."""
+    import torch
+    from qcqp_tpu_torch.convert import form_from_numpy
+    from qcqp_tpu_torch.kernels import eigh_kernel
+    from qcqp_tpu_torch.solvers import sdp
+    form = form_from_numpy(*bls_sdr_arrays(), device="cuda",
+                           dtype=torch.float32)
+    out = {"n": SDR_N, "m": SDR_N}
+    sdp.solve_sdr(form, device="device", full=True, check=False,
+                  max_iters=50)                          # warm-up
+    tail = sdp.solve_sdp.masked_tail
+    ms, sol = host_ms(lambda: sdp.solve_sdr(form, device="device", full=True,
+                                            check=False))
+    its = int(sol.iterations)
+    tail = sdp.solve_sdp.masked_tail - tail
+    # device="auto" takes this result, with no retry and no float64
+    # re-solve, when the acceptance gate passes it
+    accepted = sdp._accepted(form, sol, sdp._unscaled_rel_viol)
+    out["default_route"] = {"ms": ms, "iterations": its,
+                            "ms_per_iteration": ms / (its + tail),
+                            # loop passes after the solve had finished
+                            "masked_tail_iterations": tail,
+                            "masked_tail_ms": ms * tail / (its + tail),
+                            "rp": float(sol.primal_res),
+                            "rd": float(sol.dual_res),
+                            "bound": float(sol.objective),
+                            "accepted_without_resolve": accepted}
+    if not (accepted and bool(torch.isfinite(sol.X).all())):
+        raise AssertionError(f"default SDR route: {out['default_route']}")
+
+    data = sdp._sdr_data(form)
+    vec_kw = dict(psd_method="vec", warm_sweeps=2, accel_mem=0, alpha=1.6,
+                  detect_certificates=False)
+
+    def vec_single():
+        s = sdp.solve_sdp(data, max_iters=LOCKSTEP_ITERS, tol=0.0, **vec_kw)
+        return s.X, s.primal_res, s.dual_res
+    out["vec_single_lockstep"] = _lockstep("the n = 100 vec solve",
+                                           vec_single)
+    out["vec_single_lockstep"]["ms_per_iteration"] = \
+        out["vec_single_lockstep"]["ms"] / LOCKSTEP_ITERS
+
+    bank16, bank132 = drifted_bank(16, 24), drifted_bank(132, SDR_N)
+
+    def bank16_first():
+        X, _, rp, rd = sdp.solve_sdr_batch(
+            bank16, max_iters=LOCKSTEP_ITERS, psd_method="vec", gate=None)
+        return X, rp, rd
+    out["vec_S16_lockstep"] = _lockstep("the S = 16 vec bank", bank16_first)
+
+    # the K5 path
+    eigh_kernel.eigh_jacobi_vec.launches = 0
+    out["vec_S16"], acc16 = _bank_run(bank16)
+    out["vec_S132"], _ = _bank_run(bank132)
+    launches = eigh_kernel.eigh_jacobi_vec.launches
+    if launches == 0:
+        raise AssertionError("the vec banks launched K5 no time")
+    emit({"phase": "sdr_path", **out, "k5_launches": launches})
+    return {"launches": launches, "acc16": acc16, "bank16": bank16}
+
+
+def maxcut_arrays(n=25, p=0.2):
+    """tests/tpu_smoke.py:70-89 (np.random.seed(1))."""
+    np.random.seed(1)
+    W = np.random.uniform(0, 1, (n, n))
+    for i in range(n):
+        W[i, i] = 1
+        for j in range(i + 1, n):
+            W[j, i] = W[i, j]
+    W = (W < p).astype(float)
+    P = np.zeros((n + 1, n, n))
+    P[0] = 0.25 * W
+    P[1:, np.arange(n), np.arange(n)] = np.eye(n)
+    q = np.zeros((n + 1, n))
+    r = -np.ones(n + 1)
+    r[0] = -0.25 * W.sum()
+    return P, q, r, np.ones(n, bool)
+
+
+def circle_form():
+    """tests/tpu_smoke.py:54-67 through the port's modeling layer."""
+    import torch
+    import qcqp_tpu_torch as qt
+    X, rad = qt.Variable(2, 5), qt.Variable()
+    cons = [X >= rad, X <= 10.0 - rad, rad >= 0]
+    for i in range(5):
+        for j in range(i + 1, 5):
+            cons.append(qt.square(2 * rad)
+                        <= qt.sum_squares(X[:, i] - X[:, j]))
+    return qt.canonicalize(qt.Problem(qt.Maximize(rad), cons),
+                           torch.float32, "cuda")[0]
+
+
+def phase_sdr_golden(bank16, acc16):
+    """The SDR goldens on the card with no float64 re-solve, the handler's
+    SDR suggest, SDR starts through QCQP.solve and K1, and the batch
+    fallback's count on the S = 16 vec bank."""
+    import logging
+    import torch
+    import qcqp_tpu_torch as qt
+    from qcqp_tpu_torch.convert import form_from_numpy
+    from qcqp_tpu_torch.kernels.cd_sweep_kernel import two_phase_sweeps
+    from qcqp_tpu_torch.solvers import sdp
+    out = {}
+    resolves = sdp.solve_sdr.resolves
+    for name, form, golden, tol in (
+            ("boolean_ls", form_from_numpy(*boolean_ls_arrays(),
+                                           device="cuda",
+                                           dtype=torch.float32),
+             28.750, 2e-2),
+            ("maxcut", form_from_numpy(*maxcut_arrays(), device="cuda",
+                                       dtype=torch.float32), -57.207, 5e-2),
+            ("circle", circle_form(), -5.000, 5e-2)):
+        tail = sdp.solve_sdp.masked_tail
+        ms, sol = host_ms(lambda: sdp.solve_sdr(form, device="device",
+                                                check=False, full=True))
+        accepted = sdp._accepted(form, sol, sdp._unscaled_rel_viol)
+        out[name] = {"bound": float(sol.objective), "golden": golden,
+                     "rp": float(sol.primal_res), "rd": float(sol.dual_res),
+                     "iterations": int(sol.iterations), "ms": ms,
+                     "masked_tail_iterations":
+                         sdp.solve_sdp.masked_tail - tail,
+                     "accepted": accepted}
+        if not (accepted and abs(out[name]["bound"] - golden) <= tol):
+            raise AssertionError(f"SDR golden {name}: {out[name]}")
+    A, b = boolean_ls_data()
+    n = A.shape[1]
+    x = qt.Variable(n)
+    h = qt.QCQP(qt.Problem(qt.Minimize(qt.sum_squares(A @ x - b)),
+                           [qt.square(x) == 1]))
+    if h.device.type != "cuda" or h.qcqp_form.dtype != torch.float32:
+        raise AssertionError("the handler did not default to CUDA float32")
+    ms, _ = host_ms(lambda: h.suggest(qt.SDR))
+    out["suggest_sdr"] = {"sdr_bound": h.sdr_bound, "ms": ms}
+    if abs(h.sdr_bound - 28.750) > 2e-2 or not h.mu.is_cuda:
+        raise AssertionError(f"QCQP.suggest(SDR): {out['suggest_sdr']}")
+    signs = np.array([[1.0 if bits >> i & 1 else -1.0 for i in range(n)]
+                      for bits in range(1 << n)])
+    brute = float(np.min(np.sum((signs @ A.T - b) ** 2, axis=1)))
+    before = two_phase_sweeps.launches
+    f, v = h.solve(num_restarts=256, suggest=qt.SDR,
+                   improve=qt.COORD_DESCENT, num_iters=50)
+    launched = two_phase_sweeps.launches - before
+    out["solve_sdr_cd"] = {"objective": f, "violation": v,
+                           "brute_force": brute, "k1_launches": launched}
+    if not (v < 1e-2 and abs(f - 35.550) <= 2e-2) or launched < 1:
+        raise AssertionError(f"QCQP.solve(suggest=SDR): {out['solve_sdr_cd']}")
+    out["f64_resolves"] = sdp.solve_sdr.resolves - resolves
+    if out["f64_resolves"]:
+        raise AssertionError(f"{out['f64_resolves']} float64 re-solves")
+
+    # the batch fallback: one call with fallback on, at the budget of the
+    # sdr_path phase's fallback-free run of the same bank; each instance
+    # the gate rejects is logged and counted once
+    class Count(logging.Handler):
+        n = 0
+
+        def emit(self, record):
+            if "re-solving in float64" in record.getMessage():
+                Count.n += 1
+    log = logging.getLogger("qcqp_tpu_torch")
+    handler, level = Count(), log.level
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    before = sdp.solve_sdr_batch.fallbacks
+    try:
+        ms, (_, _, rp, rd, acc) = host_ms(lambda: sdp.solve_sdr_batch(
+            bank16, max_iters=SDR_BANK_ITERS, psd_method="vec",
+            return_accept=True))
+    finally:
+        log.removeHandler(handler)
+        log.setLevel(level)
+    counted = sdp.solve_sdr_batch.fallbacks - before
+    out["batch_fallback"] = {
+        "S": int(bank16.P.shape[0]), "max_iters": SDR_BANK_ITERS,
+        "fallbacks": counted,
+        "logged": Count.n, "rejected_in_sdr_path": int((~acc16).sum()),
+        "accept_rate_after": float(acc.mean()),
+        "max_res_after": float(torch.maximum(rp, rd).max()),
+        "ms_with_fallbacks": ms}
+    emit({"phase": "sdr_golden", **out})
+    if counted != Count.n or counted != int((~acc16).sum()):
+        raise AssertionError(f"batch fallback: {out['batch_fallback']}")
+
+
 def _device_ms_by_kernel(prof):
     """Device time (ms) and count per kernel name, from the profiler's
     device-side events only."""
@@ -1108,7 +1506,8 @@ def _profile_solve(solve, **label):
 
 def phase_profile(arrays):
     """One profiled solve per route (CD through K1 and K2 at R = 10,240,
-    ADMM through K3 at R = 1,024 and 10,240), and K1's time over R."""
+    ADMM through K3 at R = 1,024 and 10,240, DCCP through K4, the SDR's
+    Newton-Schulz and vec routes), and K1's time over R."""
     import torch
     import qcqp_tpu_torch as qt
     from qcqp_tpu_torch.convert import form_from_numpy
@@ -1130,6 +1529,16 @@ def phase_profile(arrays):
     for R in R_CCP:
         _profile_solve(lambda: solve_restarts(form, R, gen(), improve=qt.DCCP),
                        route="dccp", R=R)
+    # the SDR routes on the n = 100 boolean-LS SDR, 200 iterations each
+    from qcqp_tpu_torch.solvers import sdp
+    data = sdp._sdr_data(form_from_numpy(*bls_sdr_arrays(), device="cuda",
+                                         dtype=torch.float32))
+    for psd, kw in (("ns", dict(alpha=1.0)),
+                    ("vec", dict(alpha=1.6, warm_sweeps=2))):
+        _profile_solve(lambda: sdp.solve_sdp(
+            data, max_iters=200, tol=0.0, psd_method=psd, accel_mem=0,
+            detect_certificates=False, **kw), route=f"sdr_{psd}", n=SDR_N,
+            iters=200)
     eq_idx = form.eq_idx()
     scaling = []
     for R in (256, 1024, 4096, 10240, 20480, 40960):
@@ -1143,8 +1552,51 @@ def phase_profile(arrays):
     emit({"phase": "profile", "k1_over_R": scaling})
 
 
+def plain_runs(arrays):
+    """The longest plain-version runs, made while nvcc builds the kernels
+    (they launch none): K1's on the starts of the main path's first timed
+    solve at its full shape (phase 5), K4's on the DCCP path's R = 128
+    starts (phase 9) and on tiles 0, 1 and the last of its R = 10,240
+    starts (phase 10).  Their times are taken while the build's last nvcc
+    process runs on another core."""
+    import torch
+    from qcqp_tpu_torch.convert import form_from_numpy
+    from qcqp_tpu_torch.kernels import cd_sweep_kernel as k1
+    from qcqp_tpu_torch.kernels.ccp_kernel import CCPFusedData, ccp_improve_ref
+    from qcqp_tpu_torch.kernels.onevar_kernel import bisect_accept
+    from qcqp_tpu_torch.parallel.restarts import suggest_batch
+    form = form_from_numpy(*arrays, device="cuda", dtype=torch.float32)
+
+    def starts(R):
+        return suggest_batch(form, R,
+                             torch.Generator(device="cuda").manual_seed(1))
+    out = {}
+    xs, eq_idx = starts(R_MAIN), form.eq_idx()
+    k1._phase1_loop.lane_sweeps = k1._phase2_loop.lane_sweeps = 0
+    bisect_accept.probes = 0
+    ms, x = host_ms(lambda: k1.two_phase_sweeps_ref(
+        form.P, form.q, form.r, eq_idx, xs, num_iters=SWEEPS))
+    out["k1_main"] = {"x": x, "ms": ms, "probes": int(bisect_accept.probes),
+                      "lane_sweeps": k1._phase1_loop.lane_sweeps
+                      + k1._phase2_loop.lane_sweeps}
+    d = CCPFusedData(form)
+    xs = starts(R_CCP[0])
+    ms, x = host_ms(lambda: ccp_improve_ref(d, xs))
+    out["k4_bench"] = {"x": x, "ms": ms,
+                       "trips": ccp_improve_ref.trips.clone()}
+    R = R_CCP[1]
+    tiles = sorted({0, 1, R // 64 - 1})
+    rows = torch.cat([torch.arange(64 * t, 64 * t + 64)
+                      for t in tiles]).cuda()
+    xs = starts(R)[rows]
+    ms, x = host_ms(lambda: ccp_improve_ref(d, xs))
+    out["k4_tiles"] = {"tiles": tiles, "rows": rows, "x": x, "ms": ms}
+    return out
+
+
 def main():
     import argparse
+    import threading
     import torch
     args = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     args.add_argument("--profile", action="store_true",
@@ -1158,24 +1610,43 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    smi = phase_device()
+    seconds = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    from qcqp_tpu_torch.kernels import _build
     arrays = bench_form_arrays(0)
-    k2 = phase_k2(arrays[3])
-    k1_err = phase_k1(arrays)
-    phase_golden()
+    # nvcc builds the kernels (phase 1 reports it) while the plain versions
+    # that need no kernel run; a failed build raises again in phase 1
+    build = threading.Thread(target=_build.library)
+    build.start()
+    plain = timed("plain_during_build", plain_runs, arrays)
+    build.join()
+    smi = timed("device", phase_device)
+    k2 = timed("k2", phase_k2, arrays[3])
+    k1_err = timed("k1", phase_k1, arrays)
+    timed("golden", phase_golden)
     launches, ms_main, ms_k1, ms_plain, k1_main_err, k1_bound = \
-        phase_main(arrays)
-    k3_err = phase_k3(arrays)
-    admm = phase_admm_path(arrays)
-    phase_admm_golden()
-    k4 = phase_k4(arrays)
-    ccp = phase_ccp_path(arrays)
-    phase_ccp_golden()
+        timed("main_path", phase_main, arrays, plain)
+    k3_err = timed("k3", phase_k3, arrays)
+    admm = timed("admm_path", phase_admm_path, arrays)
+    timed("admm_golden", phase_admm_golden)
+    k4 = timed("k4", phase_k4, arrays, plain)
+    ccp = timed("ccp_path", phase_ccp_path, arrays, plain)
+    timed("ccp_golden", phase_ccp_golden)
+    k5 = timed("k5", phase_k5)
+    sdr = timed("sdr_path", phase_sdr_path)
+    timed("sdr_golden", phase_sdr_golden, sdr["bank16"], sdr["acc16"])
     if args.profile:
-        phase_profile(arrays)
+        timed("profile", phase_profile, arrays)
     if "jax" in sys.modules:
         raise AssertionError("JAX was imported")
 
+    emit({"phase": "seconds", **seconds})
     print(smi, flush=True)
     emit({"kernels": [
         {"name": "K1 two_phase_sweeps", "route": "cuda",
@@ -1223,6 +1694,17 @@ def main():
          "bound_ms_by_R": {R: v["bound_ms"]
                            for R, v in ccp["alone"].items()},
          "ms_ccp_path": ccp["ms_per_solve"]},
+        {"name": "K5 eigh_jacobi_vec / eigh_jacobi", "route": "cuda",
+         "source": "qcqp_tpu_torch/csrc/eigh_jacobi.cu",
+         "replaces": "qcqp_tpu/kernels/eigh_pallas.py:272 and :377",
+         "launches": sdr["launches"], "max_abs_err": k5["max_abs_err"],
+         **{k: k5["times"]["B=132"][k]
+            for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                      "library_ms")},
+         "shape": "B=132, N=101 (padded to 128), 2 sweeps: the S = 132 "
+                  "vec bank's",
+         "B=1": {k: k5["times"]["B=1"][k]
+                 for k in ("ms", "plain_ms", "bound_ms", "library_ms")}},
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -3,15 +3,16 @@ PyTorch, with hand-written CUDA kernels for the NVIDIA H100
 (JAX counterpart: qcqp_tpu/__init__.py).
 
 A port of the `qcqp_tpu` package, which stays the reference.  It runs the
-restart-parallel pipeline on one device: canonicalize, RANDOM suggest, then
-the improves two-phase coordinate descent (kernels K1 and K2 on CUDA),
-consensus ADMM (K3) and penalty CCP, the DCCP improve (K4), and the
-best-point reduction.  Not ported yet: SDR and spectral suggest, IPOPT,
-complex variables, scenarios and the multi-device mesh (ROADMAP.md Queue
-1).  The package imports torch and never jax.  Forms land on the first CUDA
-device when there is one, else on the CPU; dtypes are explicit (float64 on
-the CPU, float32 on CUDA by default), since torch has no global x64
-switch.
+restart-parallel pipeline on one device: canonicalize, the RANDOM and SDR
+suggests (the SDP solver of solvers/sdp.py, with the Jacobi eigh kernel K5
+on its psd_method="vec" projection), then the improves two-phase
+coordinate descent (kernels K1 and K2 on CUDA), consensus ADMM (K3) and
+penalty CCP, the DCCP improve (K4), and the best-point reduction.  Not
+ported yet: spectral suggest, IPOPT, complex variables, scenarios and the
+multi-device mesh (ROADMAP.md Queue 1).  The package imports torch and
+never jax.  Forms land on the first CUDA device when there is one, else on
+the CPU; dtypes are explicit (float64 on the CPU, float32 on CUDA by
+default), since torch has no global x64 switch.
 """
 
 from .settings import (

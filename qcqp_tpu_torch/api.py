@@ -7,13 +7,16 @@ constant, sync the flat iterate with the modeling variables, return
 (objective, max violation) pairs with the maximize sign convention
 un-negated on report.
 
-The port runs RANDOM suggest and the COORD_DESCENT, ADMM and DCCP improves
-(single restarts through `improve`, restart batches through `solve`).  On a
-CUDA float32 form a single-restart ADMM goes through K3, with its one-time
-setup cached per rho on the handler, and a single-restart DCCP through K4,
-with its setup cached once, as the JAX handler does.  SDR and SPECTRAL
-suggest and the IPOPT improve raise NotImplementedError naming the ROADMAP
-item that ports them.
+The port runs the RANDOM and SDR suggests and the COORD_DESCENT, ADMM and
+DCCP improves (single restarts through `improve`, restart batches through
+`solve`).  The SDR's solution is cached on the handler (`sdr_sol`,
+`sdr_bound`, `mu`, `_sigma_chol`), as in the JAX handler, and carried by
+save_state / load_state; on a CUDA float32 form it is solved on the card
+(solvers/sdp.py).  On such a form a single-restart ADMM goes through K3,
+with its one-time setup cached per rho on the handler, and a
+single-restart DCCP through K4, with its setup cached once, as the JAX
+handler does.  SPECTRAL suggest and the IPOPT improve raise
+NotImplementedError naming the ROADMAP item that ports them.
 
 Randomness is a torch.Generator on the form's device, seeded by the `seed`
 argument; `improve` before any `suggest` auto-suggests RANDOM, as in the
@@ -32,10 +35,11 @@ from . import settings as s
 from .core import default_device, default_dtype, eval_objective, max_violation
 from .expressions import Problem, canonicalize
 from .kernels import admm_kernel, ccp_kernel
-from .parallel.restarts import _fused_default, solve_restarts
+from .parallel.restarts import _fused_default, sdr_sampler, solve_restarts
 from .solvers.admm import improve_admm, min_valid_rho
 from .solvers.ccp import improve_ccp
 from .solvers.coord_descent import improve_coord_descent
+from .solvers.sdp import solve_sdr
 
 logger = logging.getLogger("qcqp_tpu_torch")
 
@@ -71,6 +75,10 @@ class QCQP:
             logger.warning(
                 "Problem is already convex; specifying solve method is unnecessary."
             )
+        self.sdr_sol = None
+        self.sdr_bound = None
+        self.mu = None
+        self._sigma_chol = None
         self.generator = torch.Generator(device=device).manual_seed(seed)
         self._admm_fused = {}      # rho (or None) -> ADMMFusedData
         self._ccp_fused = None     # CCPFusedData
@@ -92,13 +100,28 @@ class QCQP:
         return f0, float(out[-1])
 
     # -- suggest -----------------------------------------------------------
-    def suggest(self, method: str = s.RANDOM):
+    def suggest(self, method: str = s.RANDOM, eps: float = 1e-8, **kwargs):
+        """RANDOM: a standard normal point.  SDR: a sample of N(mu, Sigma)
+        from the Shor relaxation's lifted solution X (solved once, cached;
+        see parallel/restarts.sdr_sampler).  kwargs go to solve_sdr."""
         if method not in s.suggest_methods:
             raise ValueError(f"Unknown suggest method: {method}")
-        if method != s.RANDOM:
+        if method == s.RANDOM:
+            x = torch.randn((self.n,), generator=self.generator,
+                            dtype=self.qcqp_form.dtype, device=self.device)
+        elif method == s.SDR:
+            if self.sdr_sol is None:
+                X, bound = solve_sdr(self.qcqp_form, **kwargs)
+                self.sdr_sol = X
+                self.sdr_bound = float(bound)
+                if self.maximize_flag:
+                    self.sdr_bound *= -1
+                self.mu, self._sigma_chol = sdr_sampler(X, eps)
+            xi = torch.randn((self.n,), generator=self.generator,
+                             dtype=self.mu.dtype, device=self.device)
+            x = self.mu + self._sigma_chol @ xi
+        else:
             raise s.not_ported(method)
-        x = torch.randn((self.n,), generator=self.generator,
-                        dtype=self.qcqp_form.dtype, device=self.device)
         return self._report(x)
 
     # -- improve -----------------------------------------------------------
@@ -188,10 +211,17 @@ class QCQP:
 
     # -- checkpoint / resume -----------------------------------------------
     def save_state(self, path: str) -> None:
-        """Persist the generator state and the variable values, so a run
-        resumes where it stopped (.npz).  A JAX handler's file loads through
+        """Persist the generator state, the SDR cache and the variable
+        values, so a run resumes without re-solving the SDP (.npz; the JAX
+        handler's fields, qcqp_tpu/api.py:249-270, with the generator state
+        in place of the PRNG key).  A JAX handler's file loads through
         convert.load_jax_state instead."""
         payload = {"torch_rng_state": self.generator.get_state().numpy()}
+        if self.sdr_sol is not None:
+            payload.update(sdr_sol=self.sdr_sol.cpu().numpy(),
+                           sdr_bound=np.asarray(self.sdr_bound),
+                           mu=self.mu.cpu().numpy(),
+                           sigma_chol=self._sigma_chol.cpu().numpy())
         try:
             payload["x"] = self.layout.flatten()
         except ValueError:
@@ -205,8 +235,22 @@ class QCQP:
             if "torch_rng_state" in z.files:
                 self.generator.set_state(
                     torch.from_numpy(z["torch_rng_state"].copy()))
+            self._load_sdr(z)
             if "x" in z.files:
                 self.layout.assign(z["x"])
+
+    def _load_sdr(self, z) -> None:
+        """The SDR cache of a saved state (this package's or the JAX
+        handler's .npz), onto the handler's device and dtype."""
+        if "sdr_sol" not in z.files:
+            return
+        def t(name):
+            return torch.as_tensor(z[name], dtype=self.qcqp_form.dtype,
+                                   device=self.device)
+        self.sdr_sol = t("sdr_sol")
+        self.sdr_bound = float(z["sdr_bound"])
+        self.mu = t("mu")
+        self._sigma_chol = t("sigma_chol")
 
     # -- batched multi-restart solve ---------------------------------------
     def solve(self, num_restarts: int = 32, suggest: str = s.RANDOM,
@@ -217,5 +261,5 @@ class QCQP:
         x, f, v = solve_restarts(
             self.qcqp_form, num_restarts,
             self.generator if generator is None else generator,
-            suggest=suggest, improve=improve, **kwargs)
+            suggest=suggest, improve=improve, handler=self, **kwargs)
         return self._assign(x, f, v)

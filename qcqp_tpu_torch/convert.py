@@ -16,12 +16,6 @@ from .core import QCQPForm, default_device, default_dtype
 
 logger = logging.getLogger("qcqp_tpu_torch")
 
-# save_state fields that belong to slices not ported yet (SDR / spectral
-# suggest, ROADMAP.md Queue 1 item 6) and the JAX PRNG key, whose stream
-# torch.Generator cannot reproduce.
-_SKIPPED = ("key", "sdr_sol", "sdr_bound", "mu", "sigma_chol",
-            "spectral_sol", "spectral_bound")
-
 
 def form_from_numpy(P, q, r, is_eq, device=None, dtype=None) -> QCQPForm:
     """A QCQPForm from the JAX package's form as numpy arrays, without
@@ -37,16 +31,19 @@ def form_from_numpy(P, q, r, is_eq, device=None, dtype=None) -> QCQPForm:
 
 
 def load_jax_state(npz_path: str, handler) -> None:
-    """Load the variable values `x` of a JAX handler's saved state into a
-    qcqp_tpu_torch handler.  The PRNG key and the SDR/spectral caches are
-    skipped with a logged note: they belong to later slices."""
+    """Load a JAX handler's saved state into a qcqp_tpu_torch handler: the
+    variable values `x` and the SDR cache (sdr_sol, sdr_bound, mu,
+    sigma_chol), so the handler samples from the same relaxation without
+    re-solving it.  The JAX PRNG key, whose stream torch.Generator cannot
+    reproduce, and the spectral cache (SPECTRAL is not ported yet) are
+    skipped with a logged note."""
     if not npz_path.endswith(".npz"):
         npz_path = npz_path + ".npz"
     with np.load(npz_path) as z:
-        skipped = [k for k in _SKIPPED if k in z.files]
+        skipped = [k for k in ("key", "spectral_sol", "spectral_bound")
+                   if k in z.files]
         if skipped:
-            logger.info("load_jax_state: skipping %s (JAX PRNG key and "
-                        "SDR/spectral caches belong to later slices of the "
-                        "port)", ", ".join(skipped))
+            logger.info("load_jax_state: skipping %s", ", ".join(skipped))
+        handler._load_sdr(z)
         if "x" in z.files:
             handler.layout.assign(z["x"])

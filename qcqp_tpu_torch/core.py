@@ -166,6 +166,20 @@ def better_batch(form: QCQPForm, x1, x2, tol: float = 1e-4) -> torch.Tensor:
     return torch.where(take1[:, None], x1, x2)
 
 
+def homogeneous_forms(form: QCQPForm) -> torch.Tensor:
+    """Stacked homogeneous forms M_i = [[P_i, q_i/2], [q_i^T/2, r_i]], so
+    that (x,1)^T M_i (x,1) == f_i(x) (reference: qcqp/utilities.py:64-67).
+    Leading batch axes of the form carry through: (..., m+1, n+1, n+1)."""
+    P, q, r = form.P, form.q, form.r
+    n = P.shape[-1]
+    M = P.new_zeros(P.shape[:-2] + (n + 1, n + 1))
+    M[..., :n, :n] = P
+    M[..., :n, n] = q / 2
+    M[..., n, :n] = q / 2
+    M[..., n, n] = r
+    return M
+
+
 def dc_split(form: QCQPForm):
     """Difference-of-convex split of every row, P_i = P1_i - P2_i, both PSD,
     in the reference's default diagonal-shift mode (qcqp/utilities.py:82-89):

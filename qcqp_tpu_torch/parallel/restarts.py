@@ -7,6 +7,10 @@ examples/boolean_least_squares.py:19-38).  Here a whole batch of restarts
 reference's lexicographic `better` order (violation bucket, then
 objective; qcqp/utilities.py:135-146), ties to the lowest restart index.
 
+Suggest methods: RANDOM and SDR (samples of the Shor relaxation's
+Gaussian; the relaxation is taken from `handler=` when it has one, else
+solved once per solve_restarts call).  SPECTRAL is not ported yet.
+
 Improve methods: COORD_DESCENT, ADMM and DCCP.  On a CUDA float32 form
 they go through the kernels by default (K1 or K2 for CD, K3 for ADMM, K4
 for DCCP); the caller can pass use_fused to choose.
@@ -28,6 +32,7 @@ from ..solvers.coord_descent import improve_coord_descent_batch
 from ..solvers.coord_descent_fused import improve_coord_descent_fused
 from ..solvers import ccp as ccp_solver
 from ..solvers.admm import improve_admm_batch
+from ..solvers.sdp import solve_sdr
 from ..kernels import admm_kernel, ccp_kernel
 
 
@@ -49,14 +54,35 @@ def best_point(form: QCQPForm, xs: torch.Tensor, tol: float = 1e-4):
     return xs[i], fs[i], viols[i]
 
 
+def sdr_sampler(X: torch.Tensor, eps: float = 1e-8):
+    """(mu, L) with x = mu + L xi ~ N(mu, Sigma) from the SDR's lifted
+    solution X: mu = X[:-1, -1], Sigma = X[:-1, :-1] - mu mu^T + eps I,
+    L = Q sqrt(max(lam, 0)) from its eigh, the spectrum clamped at 0
+    (reference: qcqp/qcqp.py:383-396)."""
+    n = X.shape[-1] - 1
+    mu = X[:-1, -1]
+    Sigma = X[:-1, :-1] - torch.outer(mu, mu)
+    Sigma = Sigma + eps * torch.eye(n, dtype=X.dtype, device=X.device)
+    lam, Q = torch.linalg.eigh(Sigma)
+    return mu, Q * torch.sqrt(torch.clamp_min(lam, 0.0))
+
+
 def suggest_batch(form: QCQPForm, num: int,
                   generator: Optional[torch.Generator] = None,
-                  method: str = s.RANDOM) -> torch.Tensor:
-    """Batched suggest: (num, n) starting points.  RANDOM: iid standard
-    normal (reference: qcqp/qcqp.py:381-382)."""
+                  method: str = s.RANDOM, sdr_sampler=None) -> torch.Tensor:
+    """Batched suggest: (num, n) starting points.
+    RANDOM: iid standard normal (reference: qcqp/qcqp.py:381-382).
+    SDR: x ~ N(mu, Sigma) through sdr_sampler=(mu, L) (qcqp.py:394-396)."""
     if method == s.RANDOM:
         return torch.randn((num, form.n), generator=generator,
                            dtype=form.dtype, device=form.device)
+    if method == s.SDR:
+        if sdr_sampler is None:
+            raise ValueError("SDR suggest_batch needs sdr_sampler=(mu, L)")
+        mu, L = sdr_sampler
+        xi = torch.randn((num, form.n), generator=generator,
+                         dtype=form.dtype, device=form.device)
+        return mu[None, :] + xi @ L.T
     if method in s.NOT_PORTED:
         raise s.not_ported(method)
     raise ValueError(f"Unknown suggest method: {method}")
@@ -127,11 +153,13 @@ def solve_restarts(form: QCQPForm, num_restarts: int,
                    generator: Optional[torch.Generator] = None,
                    suggest: str = s.RANDOM,
                    improve: Union[str, List[str]] = s.COORD_DESCENT,
-                   mesh=None, better_tol: float = 1e-4,
+                   mesh=None, handler=None, better_tol: float = 1e-4,
                    **kwargs):
     """Full pipeline: suggest -> improve chain -> best-of reduction.
 
     generator: a torch.Generator on the form's device (default: seed 0).
+    SDR takes the relaxation cached on `handler` (a QCQP) when it has one,
+    else solves it here (solve_sdr).
     On a CUDA float32 form CD, ADMM and DCCP run through the kernels unless
     the caller passes use_fused; the one-time setups of the fused ADMM and
     CCP (kernels/admm_kernel.ADMMFusedData, kernels/ccp_kernel.CCPFusedData)
@@ -155,6 +183,13 @@ def solve_restarts(form: QCQPForm, num_restarts: int,
             and not kwargs.get("use_eigen_split", False)
             and ccp_kernel.takes(form)):
         kwargs["ccp_data"] = ccp_kernel.CCPFusedData(form)
-    xs = suggest_batch(form, num_restarts, generator, suggest)
+    sampler = None
+    if suggest == s.SDR:
+        if handler is not None and getattr(handler, "mu", None) is not None:
+            sampler = (handler.mu, handler._sigma_chol)
+        else:
+            sampler = sdr_sampler(solve_sdr(form)[0])
+    xs = suggest_batch(form, num_restarts, generator, suggest,
+                       sdr_sampler=sampler)
     xs = improve_chain(form, xs, improve, **kwargs)
     return best_point(form, xs, better_tol)

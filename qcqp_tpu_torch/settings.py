@@ -22,8 +22,7 @@ improve_methods = [COORD_DESCENT, ADMM, DCCP, IPOPT]
 # ROADMAP.md Queue 1 items that port the methods outside this package's
 # current slice; used in the NotImplementedError messages.
 NOT_PORTED = {
-    SDR: "ROADMAP.md Queue 1 item 6 (SDP: SDR and spectral suggest)",
-    SPECTRAL: "ROADMAP.md Queue 1 item 6 (SDP: SDR and spectral suggest)",
+    SPECTRAL: "ROADMAP.md Queue 1 item 6 (SDP: the spectral suggest)",
     IPOPT: "ROADMAP.md Queue 1 item 9 (NLP)",
 }
 

@@ -1,7 +1,7 @@
-"""The CUDA kernels K1, K2, K3 and K4 on the card, against their plain PyTorch
-versions.  Marked `gpu`: without a CUDA device every test skips.  This file
-imports neither JAX nor the JAX package, so it also runs on a machine that
-has only PyTorch:
+"""The CUDA kernels K1 to K5 on the card, against their plain PyTorch
+versions, and the SDR suggest on the card.  Marked `gpu`: without a CUDA
+device every test skips.  This file imports neither JAX nor the JAX
+package, so it also runs on a machine that has only PyTorch:
 
     python -m pytest --noconftest -q tests/test_torch_gpu.py
 
@@ -269,3 +269,76 @@ def test_k4_golden_through_handler(cuda):
     f, v = h.improve(qt.DCCP)
     assert tk.ccp_improve.launches == before + 1
     assert v < 1e-2
+
+
+@pytest.mark.parametrize("B,n0,sweeps,rounds", [
+    (16, 24, 2, None), (3, 24, 2, 57),
+    (2, 200, 1, None)])                 # n = 256: the global-memory code
+def test_k5_kernel_equals_plain(cuda, B, n0, sweeps, rounds):
+    from qcqp_tpu_torch.kernels import eigh_kernel as tk
+    A = np.random.default_rng(B + n0).standard_normal((B, n0, n0))
+    A = torch.from_numpy((0.5 * (A + np.swapaxes(A, -1, -2)))
+                         .astype(np.float32)).to(cuda)
+    before = tk.eigh_jacobi_vec.launches
+    lam, V = tk.eigh_jacobi_vec(A, sweeps=sweeps, _rounds=rounds)
+    assert tk.eigh_jacobi_vec.launches == before + 1
+    lam_p, V_p = tk.eigh_jacobi_vec_ref(A, sweeps=sweeps, _rounds=rounds)
+    torch.cuda.synchronize()
+    assert torch.equal(lam, lam_p) and torch.equal(V, V_p)
+
+
+def test_k5b_wrapper_launches_k5(cuda):
+    """eigh_jacobi launches the same kernel; against its matmul plain
+    version (rounded differently) at the LAPACK-level tolerance."""
+    from qcqp_tpu_torch.kernels import eigh_kernel as tk
+    A = np.random.default_rng(0).standard_normal((3, 40, 40))
+    A = torch.from_numpy((0.5 * (A + np.swapaxes(A, -1, -2)))
+                         .astype(np.float32)).to(cuda)
+    before = tk.eigh_jacobi.launches
+    lam, V = tk.eigh_jacobi(A, sweeps=8)
+    assert tk.eigh_jacobi.launches == before + 1
+    lam_p, V_p = tk.eigh_jacobi_ref(A, sweeps=8)
+    scale = float(lam_p.abs().max())
+    assert float((lam - lam_p).abs().max()) < 1e-4 * scale
+    rec = V @ torch.diag_embed(lam) @ V.transpose(-1, -2)
+    assert float((rec - A).abs().max()) < 1e-4 * scale
+
+
+def test_sdp_vec_lockstep_with_plain_version(cuda, monkeypatch):
+    """solve_sdp(psd_method="vec") on the card, 10 iterations, equals the
+    same solve with K5's plain version in place of the kernel, bit for
+    bit."""
+    from qcqp_tpu_torch.convert import form_from_numpy
+    from qcqp_tpu_torch.kernels import eigh_kernel as tk
+    from qcqp_tpu_torch.solvers import sdp
+    arrays, _ = _k3_form("boolean")
+    data = sdp._sdr_data(form_from_numpy(*arrays, device=cuda,
+                                         dtype=torch.float32))
+    kw = dict(max_iters=10, tol=0.0, psd_method="vec", accel_mem=0,
+              alpha=1.6, detect_certificates=False)
+    before = tk.eigh_jacobi_vec.launches
+    sol = sdp.solve_sdp(data, **kw)
+    assert tk.eigh_jacobi_vec.launches == before + 10
+    monkeypatch.setattr(tk, "eigh_jacobi_vec", tk.eigh_jacobi_vec_ref)
+    plain = sdp.solve_sdp(data, **kw)
+    for a, b in ((sol.X, plain.X), (sol.primal_res, plain.primal_res),
+                 (sol.dual_res, plain.dual_res)):
+        assert torch.equal(a, b)
+
+
+def test_sdr_suggest_on_the_card(cuda):
+    """QCQP(prob).suggest(SDR) on the default device: the float32 SDR on
+    the card, accepted with no float64 re-solve, the boolean-LS golden
+    28.750 within 2e-2."""
+    import qcqp_tpu_torch as qt
+    from qcqp_tpu_torch.solvers import sdp
+    rs = np.random.RandomState(1)
+    A, b = rs.randn(15, 10), rs.randn(15, 1).ravel()
+    x = qt.Variable(10)
+    h = qt.QCQP(qt.Problem(qt.Minimize(qt.sum_squares(A @ x - b)),
+                           [qt.square(x) == 1]))
+    assert h.device.type == "cuda"
+    before = sdp.solve_sdr.resolves
+    h.suggest(qt.SDR)
+    assert sdp.solve_sdr.resolves == before
+    assert h.mu.is_cuda and abs(h.sdr_bound - 28.750) < 2e-2
