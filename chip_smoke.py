@@ -7,7 +7,7 @@ Phases, each printing one JSON line; any failed check raises, so the script
 exits non-zero.  nvcc builds the kernels from qcqp_tpu_torch/csrc in a
 thread at the start, while the three longest plain-version runs, which
 launch no kernel, go first (`plain_runs`: the plain versions that phases
-5, 9 and 10 hold K1 and K4 against):
+5, 9 and 10 hold K1 and K4 against, K4's wide case included):
 
   1. device    the card (nvidia-smi name and power limit), torch and CUDA
                versions, the build time and ptxas' report;
@@ -60,14 +60,18 @@ launch no kernel, go first (`plain_runs`: the plain versions that phases
                bit for bit equal to the plain version on that restart;
                QCQP.solve(256 restarts, improve=ADMM) through K3 reaches
                violation < 1e-2; a rho below the minimum raises;
-  9. k4        K4 (csrc/ccp.cu) against its plain version on the card,
-               every lane bit for bit, with equal trip counts: the bench
-               form at R = 128 (bench.py:240) at the fused defaults, on the
-               starts of the DCCP path's first timed solve at that R;
-               identity at max_iter=0; a ragged R = 100; lanes permuted
-               inside a tile and whole tiles swapped; the boolean-LS
-               instance of tests/test_ccp_pallas.py:44-74 (>= 6 of 8
-               restarts feasible); ptxas' registers, spills and stack;
+  9. k4        K4 (csrc/ccp_impl.cuh, built as ccp_narrow.cu and
+               ccp_wide.cu) against its plain version on the card, every
+               lane bit for bit, with equal trip counts: the bench form at
+               R = 128 (bench.py:240) at the fused defaults, on the starts
+               of the DCCP path's first timed solve at that R, and K4's ms
+               per inner trip of the busiest tile; identity at
+               max_iter=0; a ragged R = 100; lanes permuted inside a tile
+               and whole tiles swapped; the boolean-LS instance of
+               tests/test_ccp_pallas.py:44-74 (>= 6 of 8 restarts
+               feasible); the wide instantiation at n = 150, m = 3,
+               R = 130 (4 x 5 trips); ptxas' registers, spills and stack of
+               both instantiations;
  10. ccp_path  solve_restarts(improve=DCCP) on the bench form at R = 128 and
                10,240 from a seeded torch.Generator: ms per solve (after
                a warm-up, 2 solves at R = 128 and 1 at R = 10,240),
@@ -76,7 +80,8 @@ launch no kernel, go first (`plain_runs`: the plain versions that phases
                starts, which must give that solve's best point
                (phase 9 held every lane of the R = 128 starts; at 10,240
                tiles 0, 1 and the last are held against the plain version
-               bit for bit), and the bound from the trips K4 ran;
+               bit for bit), the bound from the trips K4 ran and K4's ms
+               per inner trip of the busiest tile;
  11. ccp_golden  QCQP(prob).improve(DCCP) on sum_squares(x) s.t.
                square(x) == 1 through K4 (one launch, violation < 1e-2,
                equal to the plain version); QCQP.solve(256 restarts,
@@ -829,17 +834,18 @@ def bound(ops, nbytes):
             "ops": float(ops), "bytes": float(nbytes)}
 
 
-def k4_ops(d, trips, n_newton=5):
+def k4_ops(d, trips):
     """Operations of K4's work on one run, from the per-tile trip counts
     (tiles, 2) the kernel reports: per lane and inner trip, the 2 (m + 1)
-    rotations (2 n^2 each), each hinge block's prox (15 operations per
-    coordinate to set up, 19 per Newton trip) and the consensus and dual
-    updates (6 per coordinate and block); per outer step one linearization
-    (m + 1 + E rotations), plus the first."""
+    rotations (2 n^2 each), each hinge block's set-up (15 operations per
+    coordinate) and the consensus and dual updates (6 per coordinate and
+    block); per outer step one linearization (m + 1 + E rotations), plus
+    the first.  The hinges' Newton trips (19 operations per coordinate
+    each) are left out: K4 runs them only for the lanes whose prox needs
+    the multiplier, which the data decide, so the bound is a floor."""
     n, m, E = d.n, d.m, d.E
     B = 1 + m + E
-    inner = (4 * (m + 1) * n * n + (m + E) * n * (15 + 19 * n_newton)
-             + 6 * B * n + 8 * n)
+    inner = (4 * (m + 1) * n * n + (m + E) * n * 15 + 6 * B * n + 8 * n)
     lin = 2 * (m + 1 + E) * n * n + 6 * (m + 1) * n
     t = trips.cpu().numpy().astype(np.float64)
     return 64.0 * float((t[:, 1] * inner + (t[:, 0] + 1) * lin).sum())
@@ -867,6 +873,22 @@ def boolean_ls6_arrays():
     """tests/test_ccp_pallas.py:44-62: boolean least squares, n = 6,
     m = 9 data rows (np.random.seed(1))."""
     return bls_arrays(*boolean_ls_data(n=6, m=9))
+
+
+def k4_wide_case():
+    """tests/test_torch_gpu.py `_k4_form("wide")`: a dense random form at
+    n = 150, m = 3 (K4's n <= 256 instantiation), and 130 starts."""
+    rng = np.random.default_rng(6)
+    n, m = 150, 3
+    A = rng.standard_normal((m + 1, n, n)) / np.sqrt(n)
+    P = 0.5 * (A + np.swapaxes(A, -1, -2))
+    q = rng.standard_normal((m + 1, n)) / np.sqrt(n)
+    r = rng.standard_normal(m + 1)
+    arrays = (P, q, r, rng.random(m) < 0.5)
+    return arrays, rng.standard_normal((130, n)).astype(np.float32)
+
+
+K4_WIDE_KW = dict(max_iter=4, inner_iters=5)
 
 
 def _ptxas(kernel_tag):
@@ -912,6 +934,7 @@ def phase_k4(arrays, plain):
                              "version's")
     res["bench"] = {"R": R_CCP[0], **_k4_agrees("bench", xk, xp),
                     "ms": ms_k, "plain_ms": ms_p,
+                    "ms_per_inner_trip": ms_k / int(trips[:, 1].max()),
                     "trips": trips.tolist()}
     if not torch.isfinite(xk).all():
         raise AssertionError("K4 returned non-finite values on the bench "
@@ -948,6 +971,15 @@ def phase_k4(arrays, plain):
     if res["boolean_ls"]["feasible"] < 6:
         raise AssertionError(f"boolean LS: {res['boolean_ls']['feasible']}"
                              " of 8 restarts feasible, expected >= 6")
+    # the n <= 256 instantiation (n = 150); its plain version ran while the
+    # kernels were built
+    wide, xw = plain["k4_wide"]["d"], plain["k4_wide"]["xs"]
+    res["wide"] = {"n": wide.n, "m": wide.m, "R": xw.shape[0], **K4_WIDE_KW,
+                   **_k4_agrees("wide", ccp_improve(wide, xw, **K4_WIDE_KW),
+                                plain["k4_wide"]["x"])}
+    if not torch.equal(ccp_improve.trips, plain["k4_wide"]["trips"]):
+        raise AssertionError("K4's trip counts differ from the plain "
+                             "version's on the wide case")
     b = bound(k4_ops(d, trips), k4_bytes(d, R_CCP[0]))
     res["bench"].update(b)
     emit({"phase": "k4", "n": N, "m": M, "E": d.E, "identity_at_0": True,
@@ -955,7 +987,8 @@ def phase_k4(arrays, plain):
           "shared_bytes": shared_bytes(N), **res})
     return {"max_abs_err": max(v["max_abs_dx"] for v in res.values()),
             "ms": ms_k, "plain_ms": ms_p, "bound_ms": b["bound_ms"],
-            "bound_by": b["bound_by"]}
+            "bound_by": b["bound_by"],
+            "ms_per_inner_trip": res["bench"]["ms_per_inner_trip"]}
 
 
 def phase_ccp_path(arrays, plain):
@@ -1012,6 +1045,7 @@ def phase_ccp_path(arrays, plain):
             raise AssertionError(f"K4 on the first R = {R} solve's starts "
                                  "does not give that solve's best point")
         alone[R] = {"k4_ms": ms,
+                    "ms_per_inner_trip": ms / int(trips[:, 1].max()),
                     "trips_outer_inner": [int(trips[:, 0].sum()),
                                           int(trips[:, 1].sum())],
                     **bound(k4_ops(d, trips), k4_bytes(d, R))}
@@ -1556,9 +1590,9 @@ def plain_runs(arrays):
     """The longest plain-version runs, made while nvcc builds the kernels
     (they launch none): K1's on the starts of the main path's first timed
     solve at its full shape (phase 5), K4's on the DCCP path's R = 128
-    starts (phase 9) and on tiles 0, 1 and the last of its R = 10,240
-    starts (phase 10).  Their times are taken while the build's last nvcc
-    process runs on another core."""
+    starts (phase 9), on tiles 0, 1 and the last of its R = 10,240 starts
+    (phase 10) and on K4's wide case (phase 9).  Their times are taken
+    while the build's last nvcc process runs on another core."""
     import torch
     from qcqp_tpu_torch.convert import form_from_numpy
     from qcqp_tpu_torch.kernels import cd_sweep_kernel as k1
@@ -1591,6 +1625,13 @@ def plain_runs(arrays):
     xs = starts(R)[rows]
     ms, x = host_ms(lambda: ccp_improve_ref(d, xs))
     out["k4_tiles"] = {"tiles": tiles, "rows": rows, "x": x, "ms": ms}
+    arrays, xw = k4_wide_case()
+    dw = CCPFusedData(form_from_numpy(*arrays, device="cuda",
+                                      dtype=torch.float32))
+    xw = torch.from_numpy(xw).cuda()
+    out["k4_wide"] = {"d": dw, "xs": xw,
+                      "x": ccp_improve_ref(dw, xw, **K4_WIDE_KW),
+                      "trips": ccp_improve_ref.trips.clone()}
     return out
 
 
@@ -1679,7 +1720,7 @@ def main():
          "bound_ms_by_R": admm["bound_ms_by_R"],
          "ms_admm_path": admm["ms_per_solve"]},
         {"name": "K4 ccp_improve", "route": "cuda",
-         "source": "qcqp_tpu_torch/csrc/ccp.cu",
+         "source": "qcqp_tpu_torch/csrc/ccp_impl.cuh",
          "replaces": "qcqp_tpu/kernels/ccp_pallas.py:488",
          "launches": ccp["launches"],
          "max_abs_err": max([k4["max_abs_err"]]
@@ -1693,6 +1734,8 @@ def main():
          "ms_by_R": {R: v["k4_ms"] for R, v in ccp["alone"].items()},
          "bound_ms_by_R": {R: v["bound_ms"]
                            for R, v in ccp["alone"].items()},
+         "ms_per_inner_trip_by_R": {
+             R: v["ms_per_inner_trip"] for R, v in ccp["alone"].items()},
          "ms_ccp_path": ccp["ms_per_solve"]},
         {"name": "K5 eigh_jacobi_vec / eigh_jacobi", "route": "cuda",
          "source": "qcqp_tpu_torch/csrc/eigh_jacobi.cu",

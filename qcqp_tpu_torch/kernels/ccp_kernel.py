@@ -2,18 +2,19 @@
 (JAX counterpart: qcqp_tpu/kernels/ccp_pallas.py).
 
 `ccp_improve` is the wrapper: on CUDA float32 tensors it launches the
-hand-written kernel in `csrc/ccp.cu`; on CPU tensors it runs
+hand-written kernel in `csrc/ccp_impl.cuh`; on CPU tensors it runs
 `ccp_improve_ref`, the plain PyTorch version.  A CUDA tensor the kernel
 does not take raises; nothing falls back from the GPU to the plain version.
 `improve_ccp_fused` is the improve around it, with the reference's final
 better-fold (qcqp.py:318-319), as plain PyTorch.
 
 Routing rule, decided before any launch (`takes`): K4 runs for
-n <= MAX_N = 256.  Its block keeps three (64, NP) float32 arrays in shared
-memory (z, the previous z, a staging row for the rotations; NP is n rounded
-up to 32) beside the reduction partials (`shared_bytes`): 210 KB at
-NP = 256, and NP = 288 would pass the 227 KB a block can have.  Wider problems, and use_eigen_split, run the unfused path
-(solvers/ccp.py).
+n <= MAX_N = 256, the widest n its two instantiations take (csrc/
+ccp_impl.cuh: 4 groups of 32 coordinates a thread up to n = 128, 8 up to
+256).  Its block keeps three (64, NP) float32 arrays in shared memory (z,
+the previous z, a staging row for the rotations; NP is n rounded up to 32;
+`shared_bytes`): 192 KB at NP = 256, within the 227 KB a block can have.
+Wider problems, and use_eigen_split, run the unfused path (solvers/ccp.py).
 
 What the TPU kernel computes, per tile of L_TILE = 64 restarts, in
 lockstep: with the default diagonal split every block's quadratic has the
@@ -39,8 +40,9 @@ recomputes (the same bits).
 Exactness.  The kernel is built with -fmad=false, and the plain version
 runs one correctly rounded PyTorch op per kernel op, in the kernel's order:
 rotations sum over k in order (`_rowvec`), sums over the coordinates are
-the kernel's block reduction (`_tree_sum`), the consensus sum adds the
-blocks in bank order, maxima are exact in any order.  So K4 equals its
+the kernel's warp reduction in the same order (`_tree_sum`: a tree in each
+group of 32 coordinates, then the groups in order), the consensus sum adds
+the blocks in bank order, maxima are exact in any order.  So K4 equals its
 plain version bit for bit on the card.
 """
 
@@ -60,15 +62,14 @@ from .onevar_kernel import _check_cuda
 logger = logging.getLogger("qcqp_tpu_torch")
 
 L_TILE = 64        # restarts per tile (one CUDA block)
-MAX_N = 256        # the widest n whose shared_bytes fit a block's 227 KB
+MAX_N = 256        # the widest n an instantiation of K4 takes
 
 
 def shared_bytes(n: int) -> int:
-    """K4's dynamic shared memory at width n (csrc/ccp.cu, launch): z, the
-    previous z and the staging row (64, NP) each, the double-buffered
-    reduction partials (2, 64, NP / 32, 3) and four lane scalars."""
+    """K4's dynamic shared memory at width n (csrc/ccp_impl.cuh, launch):
+    z, the previous z and the staging rows, (64, NP) float32 each."""
     NP = -(-n // 32) * 32
-    return 4 * (3 * L_TILE * NP + 2 * L_TILE * (NP // 32) * 3 + 4 * L_TILE)
+    return 4 * 3 * L_TILE * NP
 
 
 def takes(form: QCQPForm) -> bool:

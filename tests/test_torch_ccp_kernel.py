@@ -17,6 +17,9 @@ bit for bit; identity at max_iter=0 and invariance under permutations
 inside a tile and of whole tiles are exact.
 """
 
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -198,6 +201,15 @@ def test_routing_rule(monkeypatch):
 
 
 def test_max_n_is_the_shared_memory_limit():
-    """MAX_N is the widest form whose block fits the 227 KB (232,448 B) of
-    shared memory an H100 block can have: NP = 256 fits, NP = 288 not."""
-    assert tk.shared_bytes(tk.MAX_N) <= 232448 < tk.shared_bytes(tk.MAX_N + 1)
+    """MAX_N's block fits the 227 KB (232,448 B) of shared memory an H100
+    block can have, and MAX_N is the widest n an instantiation of K4 takes:
+    32 times the wide one's coordinate groups (kCptWide in
+    csrc/ccp_impl.cuh).  The name is kept from when shared memory set
+    MAX_N."""
+    assert tk.shared_bytes(tk.MAX_N) <= 232448
+    assert tk.shared_bytes(tk.MAX_N) == 4 * 3 * 64 * tk.MAX_N
+    csrc = os.path.join(os.path.dirname(tk.__file__), os.pardir, "csrc")
+    with open(os.path.join(csrc, "ccp_impl.cuh")) as f:
+        cpt_wide = re.search(r"\bkCptWide\s*=\s*(\d+)", f.read())
+    assert cpt_wide is not None
+    assert tk.MAX_N == 32 * int(cpt_wide.group(1))
