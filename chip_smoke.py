@@ -17,13 +17,21 @@ launch no kernel, go first (`plain_runs`: the plain versions that phases
                the recipes of tests/test_onevar_pallas.py; every lane must
                equal the plain version's bit for bit (-fmad=false on both
                sides);
-  3. k1        K1 (csrc/cd_sweep.cu) against its plain version on the bench
-               form (n = 100, m = 50, seed 0), R = 1,024 numpy starts,
-               2 sweeps, and on boolean least squares (where phase 2 runs),
-               10 sweeps: identity at num_iters=0, every lane bit for bit
-               equal to the plain version's, the statistical margins of
+  3. k1        K1 (csrc/cd_sweep.cu, one warp per restart) against its
+               plain version on the bench form (n = 100, m = 50, seed 0),
+               R = 1,024 numpy starts, 2 sweeps, and on boolean least
+               squares (where phase 2 runs), 10 sweeps: identity at
+               num_iters=0, every lane bit for bit equal to the plain
+               version's, the statistical margins of
                tests/test_cd_sweep_pallas.py:104-110, and restart-permutation
-               invariance of the kernel's per-lane output;
+               invariance of the kernel's per-lane output; then
+               two_phase_sweeps (and phase1_sweeps where n <= 9) on
+               K1_SHAPES (m + 1 and m + E on both sides of 32 and 64,
+               n = 1 and 128 at the largest m the CD route sends to K1,
+               n = 8 at m = 300, R = 1 and 300) and on two forms that
+               force ties in phase 2's select, every lane bit for bit;
+               ptxas' registers, stack and spills of K1, and its shared
+               memory at the main path's shape;
   4. golden    boolean least squares through the modeling layer and
                QCQP(prob).solve(256 restarts, 50 sweeps), which defaults to
                CUDA float32: the
@@ -31,12 +39,13 @@ launch no kernel, go first (`plain_runs`: the plain versions that phases
                through K1;
   5. main_path solve_restarts on the bench form, R = 10,240, 10 sweeps,
                RANDOM starts from a seeded torch.Generator: K1's route
-               (default) and K2's route (mega=False), times, restarts/s,
-               best (f, v) and launch counts; then K1 alone (twice) and
-               its plain version on the first solve's starts at the same
-               shape: K1
-               must give that solve's best point and equal the plain
-               version bit for bit (and within the margins above);
+               (default; one launch a solve, 4 restarts a block) and K2's
+               route (mega=False), times, restarts/s, best (f, v) and
+               launch counts; then K1 alone (twice) and its plain version
+               on the first solve's starts at the same shape: K1 must give
+               that solve's best point and equal the plain version bit for
+               bit (and within the margins above); the restart-sweeps and
+               probes the plain version counts there size K1's bound;
   6. k3        K3 (csrc/admm.cu) against its plain version on the card,
                phase by phase, every lane bit for bit: the bench form,
                R = 1,024 numpy starts, 50 iterations (phase 1, phase 2
@@ -360,6 +369,85 @@ def _margins(name, v_ref, o_ref, v_new, o_new):
                              "against its plain version")
 
 
+# K1 at the shapes that cross its lanes' boundaries (n, m, share of
+# equality rows, R, sweeps): m + 1 and m + E on both sides of 32 and 64
+# (a warp's lanes own rows i = lane mod 32), n = 1 and n = 128 at the
+# largest m that the CD route sends to K1, n = 8 at m = 300; R = 1 and
+# 300 (no multiple of a block's 4 warps), each lane bit for bit.
+K1_SHAPES = [(9, 30, 0.0, 300, 4), (9, 30, 1.0, 1, 4), (9, 31, 0.0, 1, 4),
+             (9, 31, 1.0, 300, 4), (9, 32, 0.0, 300, 4),
+             (9, 32, 1.0, 300, 4), (9, 63, 0.0, 300, 3),
+             (9, 63, 1.0, 1, 3), (9, 64, 0.0, 1, 3), (9, 64, 1.0, 300, 3),
+             (1, 1278, 0.0, 100, 3), (1, 1278, 1.0, 30, 3),
+             (128, 78, 0.0, 300, 2), (128, 78, 1.0, 300, 2),
+             (8, 300, 0.0, 300, 3), (8, 300, 1.0, 300, 3)]
+
+
+def k1_shape_arrays(n, m, eq_frac, seed):
+    """tests/test_torch_gpu.py `_k1_form`: dense random rows with a
+    region of feasible starts around 0."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((m + 1, n, n)) / np.sqrt(n)
+    P = 0.5 * (A + np.swapaxes(A, -1, -2))
+    P[0] += 2.0 * np.eye(n)
+    q = rng.standard_normal((m + 1, n)) / np.sqrt(n)
+    r = rng.standard_normal(m + 1)
+    r[1:] = np.abs(r[1:]) * -0.5
+    return (P, q, r, rng.random(m) < eq_frac), rng
+
+
+def k1_tie_arrays(n, eq):
+    """tests/test_torch_gpu.py `_k1_tie_form`: a constant objective and
+    rows x_i^2 <= c_i (c_i = 1 or 4, rows 0 and 1 repeated), so that from
+    x_i = 0 phase 2's two bounds tie in value and in distance."""
+    m = n + 2
+    P = np.zeros((m + 1, n, n))
+    r = np.zeros(m + 1)
+    for i in range(m):
+        P[1 + i, i % n, i % n] = 1.0
+        r[1 + i] = -1.0 - 3.0 * ((i % n) % 2)
+    return P, np.zeros((m + 1, n)), r, np.full(m, eq)
+
+
+def _k1_shapes():
+    """K1 and its plain version on K1_SHAPES and on the tie forms, every
+    lane bit for bit: two_phase_sweeps everywhere, phase1_sweeps (the same
+    kernel with phase 2 off) where n <= 9, to keep the plain runs short."""
+    import torch
+    from qcqp_tpu_torch.convert import form_from_numpy
+    from qcqp_tpu_torch.kernels import cd_sweep_kernel as tk
+    cases = []
+    for n, m, eq_frac, R, sweeps in K1_SHAPES:
+        arrays, rng = k1_shape_arrays(n, m, eq_frac, n + m + R)
+        xs = (0.5 * rng.standard_normal((R, n))).astype(np.float32)
+        cases.append((arrays, xs, sweeps))
+    rng = np.random.default_rng(4)
+    for eq in (False, True):
+        cases.append((k1_tie_arrays(5, eq),
+                      rng.integers(-1, 2, (300, 5)).astype(np.float32), 6))
+    out = []
+    for arrays, xs, sweeps in cases:
+        form = form_from_numpy(*arrays, device="cuda", dtype=torch.float32)
+        eq_idx = form.eq_idx()
+        xs = torch.from_numpy(xs).cuda()
+        res = {"n": form.n, "m": form.m, "E": len(eq_idx),
+               "R": xs.shape[0], "sweeps": sweeps}
+        t0 = time.perf_counter()
+        fns = [("two_phase", tk.two_phase_sweeps, tk.two_phase_sweeps_ref)]
+        if form.n <= 9:
+            fns.append(("phase1", tk.phase1_sweeps, tk.phase1_sweeps_ref))
+        for name, fn, ref in fns:
+            xk = fn(form.P, form.q, form.r, eq_idx, xs, num_iters=sweeps)
+            xp = ref(form.P, form.q, form.r, eq_idx, xs, num_iters=sweeps)
+            agree = _k1_agrees(f"{name} at {res}", xk.cpu().numpy(),
+                               xp.cpu().numpy())
+            res[name] = {"lanes_identical": agree["lanes_identical"],
+                         "moved": int((xk != xs).any(dim=1).sum())}
+        res["seconds"] = time.perf_counter() - t0
+        out.append(res)
+    return out
+
+
 def phase_k1(arrays):
     import torch
     from qcqp_tpu_torch.kernels.cd_sweep_kernel import (
@@ -427,9 +515,20 @@ def phase_k1(arrays):
     if not np.array_equal(xperm.cpu().numpy(), x_main[perm]):
         raise AssertionError("K1's per-lane output depends on the restart "
                              "order")
+    t0 = time.perf_counter()
+    shapes = _k1_shapes()
+    from qcqp_tpu_torch.kernels.cd_sweep_kernel import launch_geometry
+    warps, warp_floats, smem = launch_geometry(
+        N, M, len(eq_idx), R_MAIN,
+        torch.cuda.get_device_properties(0).multi_processor_count)
     emit({"phase": "k1", "n": N, "m": M, "R": R_K1_CHECK,
           "sweeps": K1_CHECK_SWEEPS, "identity_at_0": True,
-          "permutation_invariant": True, **res})
+          "permutation_invariant": True, **res, "shapes": shapes,
+          "shapes_seconds": time.perf_counter() - t0,
+          "ptxas": _ptxas("cd_sweep_kernel"),
+          "geometry_at_main_path": {"warps_a_block": warps,
+                                    "shared_bytes_a_warp": 4 * warp_floats,
+                                    "shared_bytes_a_block": smem}})
     return max(v["max_abs_dx"] for v in res.values())
 
 
@@ -1693,6 +1792,8 @@ def main():
         {"name": "K1 two_phase_sweeps", "route": "cuda",
          "source": "qcqp_tpu_torch/csrc/cd_sweep.cu",
          "replaces": "qcqp_tpu/kernels/cd_sweep_pallas.py:382",
+         "design": "redesigned: one warp per restart, rows and candidates "
+                   "over lanes, state in shared memory",
          "launches": launches["k1"],
          "max_abs_err": max(k1_err, k1_main_err),
          "ms": ms_k1, "plain_ms": ms_plain,

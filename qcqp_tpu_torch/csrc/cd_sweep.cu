@@ -3,40 +3,57 @@
 //
 // Replaces qcqp_tpu/kernels/cd_sweep_pallas.py two_phase_sweeps /
 // phase1_sweeps (`_two_phase_kernel`, `_phase1_sweep_kernel`).  Contract:
-// P (m+1, n, n) symmetric, q (m+1, n), r (m+1,), the static equality
-// pattern as a row mask eqmask (m,) and its indices eq_idx (E,); x (n, R) is
-// the restart batch, transposed, updated in place.
+// P as Pt (n, n, m+1) with Pt[a, b, i] = P[i, a, b] (P symmetric), q as qt
+// (n, m+1), r (m+1,), the static equality pattern as a row mask eqmask (m,)
+// and its indices eq_idx (E,); x (R, n) is the restart batch, updated in
+// place.
 //
-// Per lane, in the order of the JAX code:
+// Per restart, in the order of the JAX code:
 //   phase 1  sweeps while viol >= viol_tol and the last sweep changed
 //            something; F refreshed from scratch per sweep; per coordinate
 //            the restriction (t2, t1, t0) from Gk = P[:, k, :] x and F, the
 //            warm-bracket slack bisection (bisect_accept), the closed-form
 //            F update;
-//   gate     a lane enters phase 2 only if its violation is < viol_tol;
+//   gate     a restart enters phase 2 only if its violation is < viol_tol;
 //   phase 2  the slack is fixed at the entry violation; per coordinate the
 //            candidate argmin over the vertex, the un-shifted bounds and
-//            +-inf; the lane stops after n consecutive non-moves.
+//            +-inf; the restart stops after n consecutive non-moves.
 //
-// Design.  One thread per restart (the TPU lane), blocks of kThreads.  The
-// Pallas loops stop on tile reductions; here each thread leaves its sweep
-// and bisection loops on its own state, which gives the same per-lane
-// result (a stopped lane is left unchanged by the JAX loop bodies) and has
-// no __syncthreads to hang on divergent exits.  Per-restart state (F, the
-// restriction t1/t0, the warm brackets, the canonical rows of the current
-// probe) lives in a global scratch laid out (len, R), so a warp's 32 lanes
-// touch 32 neighbouring words; x is the (n, R) output itself.  P is read
-// straight from global memory: P[:, k, :] is P[:, :, k] by symmetry, the
-// same address for every lane of a warp (a broadcast), and at the bench
-// shape all of P (2 MB) stays in the 50 MB L2, so the Pallas kernel's P1
-// copy is not needed.
+// Design.  One warp per restart, up to 4 a block, and no __syncthreads:
+// warps never wait on each other, and a ragged last block drops whole
+// warps.  Each restart stops on its own state (the Pallas loops stop on
+// tile reductions; a stopped lane is left unchanged by the JAX loop bodies,
+// so the per-restart result is the same).  Inside the warp:
+//   * rows over lanes: lane l owns constraint rows i = l (mod 32) of the
+//     m+1 rows (F refresh, restriction, F update, violation) and canonical
+//     rows j = l (mod 32) of the m+E rows.  Every float sum in K1 runs
+//     along one row (its y, its Gk, its F), so a lane computes each of its
+//     rows whole, in the plain version's order, and the bits are kept;
+//   * the maxes (violations) and the membership "any" are warp reductions,
+//     whose order does not matter (the values are >= 0 or NaN);
+//   * the two argmins (the phase-1 witness, the phase-2 select) spread the
+//     candidates over lanes, each tested against every canonical row (all
+//     lanes read the same row: a broadcast), then one lexicographic warp
+//     minimum of (value, distance, index), which is the sequential scans'
+//     first-minimum tie-break;
+//   * the bisection's and the sweeps' scalars are the same in every lane
+//     (they come out of butterfly reductions), so control flow around every
+//     shuffle is uniform and onevar_common.cuh's bisect_accept runs as it
+//     is;
+//   * state in the warp's slice of dynamic shared memory: x, the warm
+//     brackets, F, t2, t1, t0 and the five canonical fields (3n + 4(m+1) +
+//     5(m+E) floats; 3.3 KB at n = 100, m = 50, E = 22).  No global scratch.
+// P is read through Pt, so a warp's 32 rows of one (k, j) are 32 adjacent
+// words; at the bench shape all of Pt (2 MB) stays in the 50 MB L2.
 //
-// What bounds it on the H100: the phase-1 candidate sweep, as in K2
-// (onevar_phase1.cu), plus (m+1) n multiply-adds per coordinate for Gk and
-// (m+1) n^2 per sweep for the F refresh.  At R = 10,240 there are about 2.5
-// warps per SM, one per scheduler, so memory latency on the scratch and
-// warp divergence between lanes with different trip counts bound it, not
-// the card's float rate.
+// What bounds it on the H100: latency, not the float rate.  Each restart
+// reads Pt from L2 twice a sweep (the F refresh and the n restrictions:
+// 2 (m+1) n^2 floats), and a lane's row sums wait on those loads a few at
+// a time; each probe scans its candidates against the rows (about
+// (m+E)^2 / 32 row tests a lane).  Up to 40 warps an SM hide part of it.
+// Tensor cores stay out: an mma sum does not keep the rows' order of
+// additions.
+#include <climits>
 #include <cstdint>
 
 #include "onevar_common.cuh"
@@ -45,85 +62,142 @@ using namespace qk;
 
 namespace {
 
-constexpr int kThreads = 64;
+constexpr unsigned kFull = 0xffffffffu;
+// Restarts a block.  Blocks of 4 warps, at most 48 registers a thread (10
+// blocks, 40 warps an SM): a block frees its slot when its slowest restart
+// ends, so small blocks lose less to restarts of unequal length.
+constexpr int kMaxWarps = 4;
 
-struct Lane {
-  const float* P;       // (m+1, n, n)
-  const float* q;       // (m+1, n)
+__device__ __forceinline__ float warp_nmax(float w) {
+  for (int off = 16; off > 0; off >>= 1)
+    w = nmax(w, __shfl_xor_sync(kFull, w, off));
+  return w;
+}
+
+// The lexicographic minimum of (val, d, idx) over the warp, carrying c.
+// idx is unique, so every lane ends with the same winner.
+__device__ __forceinline__ bool lex_before(float v1, float d1, int i1,
+                                           float v2, float d2, int i2) {
+  return v1 < v2 || (v1 == v2 && (d1 < d2 || (d1 == d2 && i1 < i2)));
+}
+
+__device__ __forceinline__ void warp_argmin(float& val, float& d, int& idx,
+                                            float& c) {
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(kFull, val, off);
+    const float od = __shfl_xor_sync(kFull, d, off);
+    const int oi = __shfl_xor_sync(kFull, idx, off);
+    const float oc = __shfl_xor_sync(kFull, c, off);
+    if (lex_before(ov, od, oi, val, d, idx)) {
+      val = ov;
+      d = od;
+      idx = oi;
+      c = oc;
+    }
+  }
+}
+
+struct WarpRestart {
+  const float* Pt;      // (n, n, m+1)
+  const float* qt;      // (n, m+1)
   const float* r;       // (m+1,)
   const float* eqmask;  // (m,) 1 for '==' rows
   const int* eq_idx;    // (E,)
-  int n, m, e, R;
+  int n, m, e, k1, lane;
   float tol;
-  float* x;     // (n, R), at the lane's column
-  float* F;     // (m+1, R)
-  float* t1;    // (m+1, R)
-  float* t0;    // (m+1, R)
-  float* warm;  // (n, 2, R)
-  RowStore st;  // m + E rows
+  float* x;     // shared (n)
+  float* warm;  // shared (2n): the bracket (lo, hi) of each coordinate
+  float* F;     // shared (m+1), and t2, t1, t0 likewise
+  float* t2;
+  float* t1;
+  float* t0;
+  RowStore st;  // shared, m + E rows (R = 1)
   int k;        // current coordinate
 
-  __device__ float X(int j) const { return x[(size_t)j * R]; }
-  __device__ float Pat(int i, int a, int b) const {
-    return P[((size_t)i * n + a) * n + b];
-  }
-
-  // _make_ctx.refresh_F: f_i = x^T P_i x + q_i^T x + r_i.
+  // _make_ctx.refresh_F: f_i = x^T P_i x + q_i^T x + r_i.  A lane takes
+  // its rows two at a time (i and i + 32) for two independent chains.
   __device__ void refresh_F() {
-    for (int i = 0; i <= m; ++i) {
-      float s = 0.0f;
+    __syncwarp();  // x is final
+    for (int i = lane; i <= m; i += 64) {
+      const int i2 = i + 32 <= m ? i + 32 : i;
+      float s = 0.0f, s2 = 0.0f;
       for (int a = 0; a < n; ++a) {
-        float y = 0.0f;
-        for (int b = 0; b < n; ++b) y += Pat(i, a, b) * X(b);
-        s += X(a) * y;
+        const float* pa = Pt + (size_t)a * n * k1;
+        float y = 0.0f, y2 = 0.0f;
+        for (int b = 0; b < n; ++b) {
+          const float xb = x[b];
+          y += pa[b * k1 + i] * xb;
+          y2 += pa[b * k1 + i2] * xb;
+        }
+        s += x[a] * y;
+        s2 += x[a] * y2;
       }
-      float qx = 0.0f;
-      for (int a = 0; a < n; ++a) qx += q[(size_t)i * n + a] * X(a);
-      F[(size_t)i * R] = s + qx + r[i];
+      float qx = 0.0f, qx2 = 0.0f;
+      for (int a = 0; a < n; ++a) {
+        qx += qt[a * k1 + i] * x[a];
+        qx2 += qt[a * k1 + i2] * x[a];
+      }
+      F[i] = s + qx + r[i];
+      if (i2 != i) F[i2] = s2 + qx2 + r[i2];
     }
   }
 
   __device__ float viol_row(int i) const {  // row i >= 1 of viols_from_F
-    const float val = F[(size_t)i * R];
+    const float val = F[i];
     return eqmask[i - 1] > 0.5f ? fabsf(val) : nmax(val, 0.0f);
   }
 
-  // max over rows with initial 0 (cd_sweep_pallas.py:189, :276)
-  __device__ float max_viol() const {
-    float w = 0.0f;
-    for (int i = 1; i <= m; ++i) w = nmax(w, viol_row(i));
-    return w;
+  __device__ bool active(int i) const {
+    return t2[i] != 0.0f || t1[i] != 0.0f;
   }
 
-  // _make_ctx.restriction: stores t1, t0 of every row, returns xk.
+  // max over rows with initial 0 (cd_sweep_pallas.py:189, :276); with
+  // gated == true only the rows active at the current coordinate
+  __device__ float max_viol(bool gated) const {
+    float w = 0.0f;
+    for (int i = lane; i <= m; i += 32)
+      if (i > 0) w = nmax(w, (!gated || active(i)) ? viol_row(i) : 0.0f);
+    return warp_nmax(w);
+  }
+
+  __device__ void row_terms(int i, float Gk, float xk) {
+    const float p = Pt[((size_t)k * n + k) * k1 + i];
+    const float qk = qt[k * k1 + i];
+    t2[i] = p;
+    t1[i] = 2.0f * (Gk - p * xk) + qk;
+    t0[i] = F[i] - xk * (2.0f * Gk + qk) + p * (xk * xk);
+  }
+
+  // _make_ctx.restriction: t2, t1, t0 of every row; returns xk.
   __device__ float restriction(int kk) {
+    __syncwarp();  // the previous coordinate's readers are done
     k = kk;
-    const float xk = X(k);
-    for (int i = 0; i <= m; ++i) {
-      float Gk = 0.0f;
-      for (int j = 0; j < n; ++j) Gk += Pat(i, k, j) * X(j);
-      const float t2 = Pat(i, k, k);
-      const float qk = q[(size_t)i * n + k];
-      t1[(size_t)i * R] = 2.0f * (Gk - t2 * xk) + qk;
-      t0[(size_t)i * R] = F[(size_t)i * R] - xk * (2.0f * Gk + qk) +
-                          t2 * (xk * xk);
+    const float xk = x[k];
+    const float* pk = Pt + (size_t)k * n * k1;
+    for (int i = lane; i <= m; i += 64) {
+      const int i2 = i + 32 <= m ? i + 32 : i;
+      float G = 0.0f, G2 = 0.0f;
+      for (int j = 0; j < n; ++j) {
+        const float xj = x[j];
+        G += pk[j * k1 + i] * xj;
+        G2 += pk[j * k1 + i2] * xj;
+      }
+      row_terms(i, G, xk);
+      if (i2 != i) row_terms(i2, G2, xk);
     }
+    __syncwarp();  // every row visible to the warp
     return xk;
   }
 
-  __device__ float T2(int i) const { return Pat(i, k, k); }
-  __device__ float T1(int i) const { return t1[(size_t)i * R]; }
-  __device__ float T0(int i) const { return t0[(size_t)i * R]; }
-  __device__ bool active(int i) const { return T2(i) != 0.0f || T1(i) != 0.0f; }
-
   // Canonicalize rows [0, m) (constraints 1..m) and [m, m+E) (reversed
-  // equality rows) at slack s.  cand == true stores phase 1's left
-  // endpoints in F_C1; otherwise phase 2's un-shifted bounds in F_C1/F_C2.
+  // equality rows) at slack s, lane j of each 32.  phase1 == true stores
+  // phase 1's left endpoints in F_C1; otherwise phase 2's un-shifted
+  // bounds in F_C1/F_C2.
   __device__ void canon_all(float s, bool phase1) {
-    for (int j = 0; j < m + e; ++j) {
+    for (int j = lane; j < m + e; j += 32) {
       const bool rev = j >= m;
       const int i = rev ? 1 + eq_idx[j - m] : 1 + j;
-      const float p = T2(i), qq = T1(i), c = T0(i);
+      const float p = t2[i], qq = t1[i], c = t0[i];
       const CanonRow row = rev ? canon_row(-p, -qq, -c - s, tol, active(i))
                                : canon_row(p, qq, c - s, tol, active(i));
       store_member(st, j, row);
@@ -137,39 +211,65 @@ struct Lane {
         st.at(F_C2, j) = fabsf(row.b) < QK_INF ? bt : QK_NAN;
       }
     }
+    __syncwarp();  // the rows visible to every lane's scan
   }
 
   // Probe interface of bisect_accept (_phase1_loop's feasible_point and
-  // viol_of).
+  // viol_of).  The witness (witness_scan of onevar_common.cuh): the
+  // candidates F_C1 of rows 0..m+E-1, then -inf; the feasible one nearest
+  // xk, the lowest index on ties (a NaN distance counts as +inf); if no
+  // feasible one has a finite distance, the first feasible one.
   __device__ bool probe(float s, float xk, float& xi) {
+    __syncwarp();  // the previous probe's scans are done
     canon_all(s, true);
-    return witness_scan(st, xk, xi);
+    const int nr = m + e;
+    float val = QK_INF, d = QK_INF, c = 0.0f;
+    int idx = INT_MAX;
+    for (int t = lane; t <= nr; t += 32) {
+      const float cv = t < nr ? st.at(F_C1, t) : -QK_INF;
+      if (!member(cv, st)) continue;
+      float dd = fabsf(cv - xk);
+      if (isnan(dd)) dd = QK_INF;
+      if (idx == INT_MAX || dd < d) {
+        val = 0.0f;
+        d = dd;
+        idx = t;
+        c = cv;
+      }
+    }
+    warp_argmin(val, d, idx, c);
+    if (idx == INT_MAX) {  // none feasible: candidate 0, unused
+      xi = nr > 0 ? st.at(F_C1, 0) : -QK_INF;
+      return false;
+    }
+    xi = c;
+    return true;
   }
 
+  // The positive side of every row and the negative side of the E
+  // equality rows, over the canonical rows' lanes.
   __device__ float viol_of(float v) const {
     float w = 0.0f;
-    for (int i = 1; i <= m; ++i) {
-      const float val = (T2(i) * v + T1(i)) * v + T0(i);
-      w = nmax(w, active(i) ? nmax(val, 0.0f) : 0.0f);
+    for (int j = lane; j < m + e; j += 32) {
+      const bool rev = j >= m;
+      const int i = rev ? 1 + eq_idx[j - m] : 1 + j;
+      const float val = (t2[i] * v + t1[i]) * v + t0[i];
+      w = nmax(w, active(i) ? nmax(rev ? -val : val, 0.0f) : 0.0f);
     }
-    for (int j = 0; j < e; ++j) {
-      const int i = 1 + eq_idx[j];
-      const float val2 = (T2(i) * v + T1(i)) * v + T0(i);
-      w = nmax(w, active(i) ? nmax(-val2, 0.0f) : 0.0f);
-    }
-    return w;
+    return warp_nmax(w);
   }
 
   // closed-form F update and the move itself
   __device__ void apply(float v) {
-    for (int i = 0; i <= m; ++i)
-      F[(size_t)i * R] = T2(i) * (v * v) + T1(i) * v + T0(i);
-    x[(size_t)k * R] = v;
+    __syncwarp();  // every lane has read x[k] and the warm bracket
+    for (int i = lane; i <= m; i += 32)
+      F[i] = t2[i] * (v * v) + t1[i] * v + t0[i];
+    if (lane == 0) x[k] = v;
   }
 
   // _phase1_loop
   __device__ void phase1(int num_iters, float viol_tol, int n_bisect) {
-    for (int j = 0; j < 2 * n; ++j) warm[(size_t)j * R] = QK_INF;
+    for (int j = lane; j < 2 * n; j += 32) warm[j] = QK_INF;
     float viol_last = QK_INF;
     bool changed = true;
     for (int t = 0; t < num_iters; ++t) {
@@ -178,32 +278,49 @@ struct Lane {
       bool changed_new = false;
       for (int kk = 0; kk < n; ++kk) {
         const float xk = restriction(kk);
-        float viol = 0.0f;
-        for (int i = 1; i <= m; ++i)
-          viol = nmax(viol, active(i) ? viol_row(i) : 0.0f);
-        float wlo = warm[(size_t)(2 * kk) * R];
-        float whi = warm[(size_t)(2 * kk + 1) * R];
+        const float viol = max_viol(true);
+        float wlo = warm[2 * kk];
+        float whi = warm[2 * kk + 1];
         const float v = bisect_accept(*this, xk, viol, tol, viol_tol,
                                       n_bisect, kRel, true, wlo, whi);
-        warm[(size_t)(2 * kk) * R] = wlo;
-        warm[(size_t)(2 * kk + 1) * R] = whi;
         if (v != xk) changed_new = true;
         apply(v);
+        if (lane == 0) {
+          warm[2 * kk] = wlo;
+          warm[2 * kk + 1] = whi;
+        }
       }
-      viol_last = max_viol();
+      viol_last = max_viol(false);
       changed = changed_new;
     }
   }
 
+  // Phase 2's candidate t: the vertex, then per block (constraint rows,
+  // equality rows) its a candidates and its b candidates, then -inf, +inf.
+  __device__ float candidate(int t, float p0, float q0) const {
+    if (t == 0) return p0 > 0.0f ? -q0 / (2.0f * p0) : QK_NAN;
+    t -= 1;
+    if (t < 2 * m) return t < m ? st.at(F_C1, t) : st.at(F_C2, t - m);
+    t -= 2 * m;
+    if (t < 2 * e)
+      return t < e ? st.at(F_C1, m + t) : st.at(F_C2, m + t - e);
+    return t == 2 * e ? -QK_INF : QK_INF;
+  }
+
   // _phase2_select for the current coordinate: returns v, sets any_feas.
+  // The minimum value wins (== ties, so -0 ties +0), then the smallest
+  // distance, then the lowest index; when that distance is not finite,
+  // the lowest index with the minimum value, which the same order gives.
   __device__ float select(float xk, bool& any_feas) const {
-    const float p0 = T2(0), q0 = T1(0), r0 = T0(0);
-    float vmin = QK_INF, best_d = QK_INF, best_c = 0.0f, first_c = 0.0f;
-    int idx = 0;
-    any_feas = false;
-    auto visit = [&](float c) {
+    const float p0 = t2[0], q0 = t1[0], r0 = t0[0];
+    const int C = 2 * (m + e) + 3;
+    float bv = QK_INF, bd = QK_INF, bc = 0.0f;
+    int bi = INT_MAX;
+    bool feas = false;
+    for (int t = lane; t < C; t += 32) {
+      const float c = candidate(t, p0, q0);
       const bool f = member(c, st);
-      any_feas = any_feas || f;
+      feas = feas || f;
       float val;
       if (fabsf(c) == QK_INF) {
         const float sgn_c = c > 0.0f ? 1.0f : -1.0f;
@@ -215,34 +332,22 @@ struct Lane {
       if (!(f && !isnan(val))) val = QK_INF;
       float d = fabsf(c - xk);
       if (isnan(d)) d = QK_INF;
-      // argmin(vals) is the first minimum; among the ties, the first
-      // minimal distance
-      if (idx == 0 || val < vmin) {
-        vmin = val;
-        first_c = c;
-        best_d = d;
-        best_c = c;
-      } else if (val == vmin && d < best_d) {
-        best_d = d;
-        best_c = c;
+      if (lex_before(val, d, t, bv, bd, bi)) {
+        bv = val;
+        bd = d;
+        bi = t;
+        bc = c;
       }
-      ++idx;
-    };
-    visit(p0 > 0.0f ? -q0 / (2.0f * p0) : QK_NAN);  // the vertex
-    // per block: its a candidates, then its b candidates
-    for (int j = 0; j < m; ++j) visit(st.at(F_C1, j));
-    for (int j = 0; j < m; ++j) visit(st.at(F_C2, j));
-    for (int j = m; j < m + e; ++j) visit(st.at(F_C1, j));
-    for (int j = m; j < m + e; ++j) visit(st.at(F_C2, j));
-    visit(-QK_INF);
-    visit(QK_INF);
-    return best_d < QK_INF ? best_c : first_c;
+    }
+    warp_argmin(bv, bd, bi, bc);
+    any_feas = __any_sync(kFull, feas);
+    return bc;
   }
 
   // _phase2_loop
   __device__ void phase2(int num_iters, float viol_tol) {
     refresh_F();
-    const float slack = max_viol();
+    const float slack = max_viol(false);
     if (!(slack < viol_tol)) return;  // gated: the counter starts at n
     int counter = 0;
     for (int t = 0; t < num_iters && counter < n; ++t) {
@@ -252,7 +357,7 @@ struct Lane {
         const float xk = restriction(kk);
         canon_all(slack, false);
         bool any_feas;
-        float v = select(xk, any_feas);
+        const float v = select(xk, any_feas);
         const bool accept = any_feas && fabsf(v - xk) > tol &&
                             fabsf(v) < QK_INF && !isnan(v);
         counter = accept ? 0 : counter + 1;
@@ -262,42 +367,62 @@ struct Lane {
   }
 };
 
-__global__ void cd_sweep_kernel(const float* P, const float* q,
-                                const float* r, const float* eqmask,
-                                const int* eq_idx, int e, float* x,
-                                float* scratch, int n, int m, int R,
-                                int num_iters, float tol, float viol_tol,
-                                int n_bisect, int phase1, int phase2) {
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= R) return;
+__global__ void __launch_bounds__(32 * kMaxWarps, 10)
+cd_sweep_kernel(const float* Pt, const float* qt, const float* r,
+                const float* eqmask, const int* eq_idx, int e, float* x,
+                int n, int m, int R, int num_iters, float tol,
+                float viol_tol, int n_bisect, int phase1, int phase2,
+                int warp_floats) {
+  extern __shared__ float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rid = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (rid >= R) return;  // a whole warp
   const int k1 = m + 1;
-  float* s = scratch + tid;
-  Lane L{P, q, r, eqmask, eq_idx, n, m, e, R, tol,
-         x + tid,
-         s,
-         s + (size_t)k1 * R,
-         s + (size_t)2 * k1 * R,
-         s + (size_t)3 * k1 * R,
-         RowStore{s + (size_t)(3 * k1 + 2 * n) * R, m + e, R},
-         0};
-  if (phase1) L.phase1(num_iters, viol_tol, n_bisect);
-  if (phase2) L.phase2(num_iters, viol_tol);
+  float* s = smem + (size_t)warp * warp_floats;
+  WarpRestart W{Pt, qt, r, eqmask, eq_idx, n, m, e, k1, lane, tol,
+                s,
+                s + n,
+                s + 3 * n,
+                s + 3 * n + k1,
+                s + 3 * n + 2 * k1,
+                s + 3 * n + 3 * k1,
+                RowStore{s + 3 * n + 4 * k1, m + e, 1},
+                0};
+  float* xg = x + (size_t)rid * n;
+  for (int j = lane; j < n; j += 32) W.x[j] = xg[j];
+  if (phase1) W.phase1(num_iters, viol_tol, n_bisect);
+  if (phase2) W.phase2(num_iters, viol_tol);
+  __syncwarp();
+  for (int j = lane; j < n; j += 32) xg[j] = W.x[j];
 }
 
 }  // namespace
 
-// Scratch floats per restart: 3 (m+1) + 2 n + 5 (m + E), laid out (len, R).
-// Returns cudaGetLastError() after the launch.
-extern "C" int qk_cd_sweeps(const float* P, const float* q, const float* r,
+// `warps` restarts a block, `warp_floats` (>= 3n + 4(m+1) + 5(m+E)) shared
+// floats a warp; the wrapper chooses both (cd_sweep_kernel.launch_geometry).
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
+// a geometry the kernel does not take.
+extern "C" int qk_cd_sweeps(const float* Pt, const float* qt, const float* r,
                             const float* eqmask, const int* eq_idx, int e,
-                            float* x, float* scratch, int n, int m, int R,
-                            int num_iters, float tol, float viol_tol,
-                            int n_bisect, int phase1, int phase2,
-                            void* stream) {
-  const int blocks = (R + kThreads - 1) / kThreads;
+                            float* x, int n, int m, int R, int num_iters,
+                            float tol, float viol_tol, int n_bisect,
+                            int phase1, int phase2, int warps,
+                            int warp_floats, void* stream) {
+  if (warps < 1 || warps > kMaxWarps ||
+      warp_floats < 3 * n + 4 * (m + 1) + 5 * (m + e))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (R == 0) return 0;
+  const size_t smem = (size_t)warps * warp_floats * sizeof(float);
+  if (smem > 48 * 1024) {  // above 48 KB only after opting in
+    const cudaError_t err = cudaFuncSetAttribute(
+        cd_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int blocks = (R + warps - 1) / warps;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cd_sweep_kernel<<<blocks, kThreads, 0, s>>>(
-      P, q, r, eqmask, eq_idx, e, x, scratch, n, m, R, num_iters, tol,
-      viol_tol, n_bisect, phase1, phase2);
+  cd_sweep_kernel<<<blocks, 32 * warps, smem, s>>>(
+      Pt, qt, r, eqmask, eq_idx, e, x, n, m, R, num_iters, tol, viol_tol,
+      n_bisect, phase1, phase2, warp_floats);
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,10 +8,12 @@
 //   witness_scan   _feasible_point_from_canon (:161-184)
 //   bisect_accept  _bisect_accept (:246-391)
 //
-// One CUDA thread is one restart (one TPU lane).  Per-row canonical data
-// lives in global scratch laid out (field, row, R): field f of row j of
-// restart `tid` is at base[(f * nr + j) * R + tid], so a warp touches 32
-// neighbouring words.
+// In K2 one CUDA thread is one restart (one TPU lane), and per-row
+// canonical data lives in global scratch laid out (field, row, R): field f
+// of row j of restart `tid` is at base[(f * nr + j) * R + tid], so a warp
+// touches 32 neighbouring words.  K1 runs a restart on a warp and keeps its
+// rows in shared memory (a RowStore with R = 1); there every lane calls
+// bisect_accept with the same values, and its probe is warp-collective.
 //
 // Numerics follow the JAX code operation by operation:
 //   * nmax/nmin propagate NaN like jnp.maximum/jnp.minimum (fmaxf/fminf

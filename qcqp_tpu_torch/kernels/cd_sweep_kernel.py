@@ -9,14 +9,14 @@ falls back from the GPU to the plain version.
 
 Tensor contract (as in the JAX package): P (m+1, n, n) symmetric, q
 (m+1, n), r (m+1,), eq_idx the static tuple of equality rows, xs (R, n).
-Any R: the JAX wrapper pads R to the 128-lane tile, the kernel masks the
-ragged block.
+Any R: the JAX wrapper pads R to the 128-lane tile; the CUDA kernel runs
+one warp per restart, and its ragged last block has fewer warps.
 
 Per-lane semantics.  The Pallas loops run while any lane of a 128-restart
 tile is alive.  A lane that has stopped is left unchanged by the loop
 bodies, except that phase 1 keeps re-deriving a stopped lane's violation
 from the drifting closed-form F; in a rare lane at viol_tol within rounding
-that could revive it.  The CUDA kernel (one thread per restart) and the
+that could revive it.  The CUDA kernel (one warp per restart) and the
 plain version here both stop each lane on its own state, so a lane's
 result does not depend on which restarts share its batch: the plain
 version runs each sweep only on the lanes that are still alive.
@@ -246,6 +246,39 @@ def phase1_sweeps_ref(P, q, r, eq_idx, xs, num_iters=1000, viol_tol=1e-2,
     return x.T.contiguous()
 
 
+# K1's launch geometry (csrc/cd_sweep.cu): one warp per restart, each with
+# its state in its slice of the block's dynamic shared memory.
+SMEM_BLOCK_MAX = 232448        # bytes a block may opt in to on the H100
+MAX_WARPS = 4                  # restarts a block (kMaxWarps in the source)
+
+
+def launch_geometry(n, m, e, R=None, sms=None):
+    """(warps a block, shared floats a warp, shared bytes a block) for K1
+    at n, m, E: a warp holds x (n), the warm brackets (2n), F, t2, t1, t0
+    (m+1 each) and five canonical fields of the m+E rows, rounded up to 16
+    bytes.  Up to MAX_WARPS warps within SMEM_BLOCK_MAX; given R and the
+    card's SM count, fewer, so that a small batch spreads over the SMs.
+    Raises ValueError when one warp's state exceeds SMEM_BLOCK_MAX."""
+    warp_floats = -(-(3 * n + 4 * (m + 1) + 5 * (m + e)) // 4) * 4
+    per_warp = 4 * warp_floats
+    if per_warp > SMEM_BLOCK_MAX:
+        raise ValueError(
+            f"cd_sweeps: one restart's state at n={n}, m={m}, E={e} takes "
+            f"{per_warp} bytes of shared memory, above the {SMEM_BLOCK_MAX} "
+            "a block may use")
+    warps = min(MAX_WARPS, SMEM_BLOCK_MAX // per_warp)
+    if R is not None and sms:
+        warps = max(1, min(warps, R // sms))
+    return warps, warp_floats, warps * per_warp
+
+
+def lane_layout(P, q):
+    """P (m+1, n, n) and q (m+1, n) as K1 reads them: Pt (n, n, m+1) with
+    Pt[a, b, i] = P[i, a, b] and qt (n, m+1), so that the 32 lanes of a
+    warp, one row each, read 32 adjacent words.  A layout only."""
+    return P.permute(1, 2, 0).contiguous(), q.t().contiguous()
+
+
 def _launch(P, q, r, eq_idx, xs, num_iters, viol_tol, tol, n_bisect,
             phase1, phase2):
     k1, n = P.shape[0], P.shape[-1]
@@ -256,24 +289,23 @@ def _launch(P, q, r, eq_idx, xs, num_iters, viol_tol, tol, n_bisect,
     eq_idx = tuple(int(i) for i in eq_idx)
     e = len(eq_idx)
     dev = P.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    warps, warp_floats, _ = launch_geometry(n, m, e, R, sms)
     eq_t = torch.tensor(eq_idx if e else [0], dtype=torch.int32, device=dev)
     eqmask = torch.zeros(max(m, 1), dtype=torch.float32, device=dev)
     if e:
         eqmask[eq_t.long()] = 1.0
-    x = torch.empty((n, R), dtype=torch.float32, device=dev)
-    x.copy_(xs.T)                                    # (n, R), in/out
-    scratch = torch.empty((3 * k1 + 2 * n + 5 * (m + e), R),
-                          dtype=torch.float32, device=dev)
+    Pt, qt = lane_layout(P, q)
+    x = xs.clone()                                   # (R, n), in/out
     lib = _build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.qk_cd_sweeps(P.data_ptr(), q.data_ptr(), r.data_ptr(),
+    rc = lib.qk_cd_sweeps(Pt.data_ptr(), qt.data_ptr(), r.data_ptr(),
                           eqmask.data_ptr(), eq_t.data_ptr(), e,
-                          x.data_ptr(), scratch.data_ptr(), n, m, R,
-                          int(num_iters), float(tol), float(viol_tol),
-                          int(n_bisect), int(bool(phase1)),
-                          int(bool(phase2)), stream)
+                          x.data_ptr(), n, m, R, int(num_iters), float(tol),
+                          float(viol_tol), int(n_bisect), int(bool(phase1)),
+                          int(bool(phase2)), warps, warp_floats, stream)
     _build.check(rc, "qk_cd_sweeps")
-    return x.T.contiguous()
+    return x
 
 
 def two_phase_sweeps(P, q, r, eq_idx, xs, num_iters=1000, viol_tol=1e-2,

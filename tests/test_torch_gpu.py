@@ -72,33 +72,80 @@ def _k1_form(n, m, seed, eq_frac):
     return (P, q, r, is_eq), rng
 
 
-@pytest.mark.parametrize("eq_frac", [0.0, 0.5, 1.0])
-def test_k1_kernel_equals_plain(cuda, eq_frac):
-    from qcqp_tpu_torch.convert import form_from_numpy
+def _k1_holds(form, xs, num_iters):
+    """K1 against its plain version, every lane bit for bit, both
+    wrappers; the identity at num_iters=0; a restart permutation moves
+    the output's rows with it."""
     from qcqp_tpu_torch.kernels import cd_sweep_kernel as tk
-    arrays, rng = _k1_form(9, 5, 3, eq_frac)
-    form = form_from_numpy(*arrays, device=cuda, dtype=torch.float32)
     eq_idx = form.eq_idx()
-    xs = torch.from_numpy(
-        (0.5 * rng.standard_normal((300, 9))).astype(np.float32)).to(cuda)
+    args = (form.P, form.q, form.r, eq_idx)
     for fn, ref in ((tk.two_phase_sweeps, tk.two_phase_sweeps_ref),
                     (tk.phase1_sweeps, tk.phase1_sweeps_ref)):
         before = fn.launches
-        out = fn(form.P, form.q, form.r, eq_idx, xs, num_iters=8)
+        out = fn(*args, xs, num_iters=num_iters)
         assert fn.launches == before + 1
-        want = ref(form.P, form.q, form.r, eq_idx, xs, num_iters=8)
+        want = ref(*args, xs, num_iters=num_iters)
         torch.cuda.synchronize()
         assert torch.equal(out, want)
-    out0 = tk.two_phase_sweeps(form.P, form.q, form.r, eq_idx, xs,
-                               num_iters=0)
-    assert torch.equal(out0, xs)
-    perm = torch.randperm(300, generator=torch.Generator().manual_seed(0))
-    perm = perm.to(cuda)
-    full = tk.two_phase_sweeps(form.P, form.q, form.r, eq_idx, xs,
-                               num_iters=8)
-    permuted = tk.two_phase_sweeps(form.P, form.q, form.r, eq_idx, xs[perm],
-                                   num_iters=8)
+        if fn is tk.two_phase_sweeps:
+            full = out
+    assert torch.equal(tk.two_phase_sweeps(*args, xs, num_iters=0), xs)
+    R = xs.shape[0]
+    perm = torch.randperm(R, generator=torch.Generator().manual_seed(0))
+    perm = perm.to(xs.device)
+    permuted = tk.two_phase_sweeps(*args, xs[perm], num_iters=num_iters)
     assert torch.equal(permuted, full[perm])
+
+
+# (n, m, share of equality rows, R, sweeps): m + 1 and m + E on both sides
+# of 32 and 64 (one warp's lanes own rows i = lane mod 32), n = 1 and
+# n = 128 at the largest m that `_mega_fits` routes to K1, n = 8 at
+# m = 300; R = 1 and 300 (no multiple of a block's 4 warps).
+K1_CASES = [(9, 5, 0.0, 300, 8), (9, 5, 0.5, 300, 8), (9, 5, 1.0, 300, 8),
+            (9, 30, 0.0, 300, 6), (9, 30, 1.0, 1, 6),
+            (9, 31, 0.0, 1, 6), (9, 31, 1.0, 300, 6),
+            (9, 32, 0.0, 300, 6), (9, 32, 1.0, 300, 6),
+            (9, 63, 0.0, 300, 4), (9, 63, 1.0, 1, 4),
+            (9, 64, 0.0, 1, 4), (9, 64, 1.0, 300, 4),
+            (1, 1278, 0.0, 100, 4), (1, 1278, 1.0, 30, 4),
+            (128, 78, 0.0, 300, 2), (128, 78, 1.0, 300, 2),
+            (8, 300, 0.0, 300, 4), (8, 300, 1.0, 300, 4)]
+
+
+@pytest.mark.parametrize("n,m,eq_frac,R,sweeps", K1_CASES)
+def test_k1_kernel_equals_plain(cuda, n, m, eq_frac, R, sweeps):
+    from qcqp_tpu_torch.convert import form_from_numpy
+    arrays, rng = _k1_form(n, m, n + m + R, eq_frac)
+    form = form_from_numpy(*arrays, device=cuda, dtype=torch.float32)
+    xs = torch.from_numpy(
+        (0.5 * rng.standard_normal((R, n))).astype(np.float32)).to(cuda)
+    _k1_holds(form, xs, sweeps)
+
+
+def _k1_tie_form(n):
+    """Integer data that forces ties: a constant objective, so that every
+    feasible phase-2 candidate has the value 0, and rows x_i^2 <= c_i
+    (c_i = 1 or 4) with rows 0 and 1 repeated (equal witness candidates).
+    From x_i = 0 the two bounds -sqrt(c_i) and +sqrt(c_i) tie in value and
+    in distance, and the lower index (the a bound) must win."""
+    m = n + 2
+    P = np.zeros((m + 1, n, n))
+    r = np.zeros(m + 1)
+    for i in range(m):
+        P[1 + i, i % n, i % n] = 1.0
+        r[1 + i] = -1.0 - 3.0 * ((i % n) % 2)
+    return P, np.zeros((m + 1, n)), r
+
+
+@pytest.mark.parametrize("eq", [False, True])
+def test_k1_kernel_equals_plain_on_ties(cuda, eq):
+    from qcqp_tpu_torch.convert import form_from_numpy
+    P, q, r = _k1_tie_form(5)
+    is_eq = np.full(P.shape[0] - 1, eq)
+    form = form_from_numpy(P, q, r, is_eq, device=cuda, dtype=torch.float32)
+    rng = np.random.default_rng(4)
+    xs = torch.from_numpy(rng.integers(-1, 2, (300, 5)).astype(np.float32))
+    _k1_holds(form, xs.to(cuda), 6)
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
@@ -114,6 +161,16 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(TypeError):
         k1.two_phase_sweeps(P, q, r, (), torch.zeros((8, 5), device=cuda,
                                                      dtype=torch.float64))
+    # one restart's state above the 227 KB a block may hold: 4 (3n +
+    # 4 (m+1) + 5 (m+E)) = 392,112 bytes at n = 8, m = E = 7,000
+    n, m = 8, 7000
+    P, q, r = (torch.zeros(s, device=cuda) for s in ((m + 1, n, n),
+                                                     (m + 1, n), (m + 1,)))
+    before = k1.two_phase_sweeps.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        k1.two_phase_sweeps(P, q, r, tuple(range(m)),
+                            torch.zeros((4, n), device=cuda))
+    assert k1.two_phase_sweeps.launches == before
 
 
 def _k3_form(kind):
