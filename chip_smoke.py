@@ -7,19 +7,22 @@ Phases, each printing one JSON line; any failed check raises, so the script
 exits non-zero.  nvcc builds the kernels from qcqp_tpu_torch/csrc in a
 thread at the start, while the three longest plain-version runs, which
 launch no kernel, go first (`plain_runs`: the plain versions that phases
-5, 9 and 10 hold K1 and K4 against, K4's wide case included):
+5, 10 and 11 hold K1 and K4 against, K4's wide case included):
 
   1. device    the card (nvidia-smi name and power limit), torch and CUDA
                versions, the build time and ptxas' report;
-  2. k2        K2 (csrc/onevar_phase1.cu) against its plain PyTorch version
-               on the card, generic and split (with the bench form's
-               equality rows), m = 50, R = 10,240, then on
-               the recipes of tests/test_onevar_pallas.py; every lane must
+  2. k2        K2 (csrc/onevar_phase1.cu, one warp per restart) against
+               its plain PyTorch version on the card, generic and split
+               (with the bench form's equality rows), m = 50, R = 10,240,
+               both timed, then on the recipes of
+               tests/test_onevar_pallas.py and on K2_SHAPES (rows across
+               32 and 64, E = 0 and m, R = 1, 33 and 300, and m = E =
+               4,900, whose rows live in global memory); every lane must
                equal the plain version's bit for bit (-fmad=false on both
-               sides);
+               sides); ptxas' registers, stack and spills of K2;
   3. k1        K1 (csrc/cd_sweep.cu, one warp per restart) against its
                plain version on the bench form (n = 100, m = 50, seed 0),
-               R = 1,024 numpy starts, 2 sweeps, and on boolean least
+               R = 1,024 numpy starts, 1 sweep, and on boolean least
                squares (where phase 2 runs), 10 sweeps: identity at
                num_iters=0, every lane bit for bit equal to the plain
                version's, the statistical margins of
@@ -46,7 +49,18 @@ launch no kernel, go first (`plain_runs`: the plain versions that phases
                that solve's best point and equal the plain version bit for
                bit (and within the margins above); the restart-sweeps and
                probes the plain version counts there size K1's bound;
-  6. k3        K3 (csrc/admm.cu) against its plain version on the card,
+  6. k2_route the default CD route above n = 128: bench.py's form at
+               BENCH_N=256, BENCH_M=20 (seed 0) through solve_restarts at
+               R = 10,240, 10 sweeps, with no mega= argument, so that
+               `_mega_fits` sends phase 1 to K2 once per coordinate: a
+               one-sweep warm-up and 3 timed solves, restarts/s, best
+               (f, v), K1 (none) and K2 (n a sweep) launches; K2 alone on
+               one of the route's launches, against its plain version
+               and timed;
+               the route at R = 256, 2 sweeps, every restart bit for bit
+               against the same route with K2's plain version in K2's
+               place (swapped in this script only);
+  7. k3        K3 (csrc/admm.cu) against its plain version on the card,
                phase by phase, every lane bit for bit: the bench form,
                R = 1,024 numpy starts, 50 iterations (phase 1, phase 2
                after phase 1's better-fold, phase 2 alone as with
@@ -55,21 +69,21 @@ launch no kernel, go first (`plain_runs`: the plain versions that phases
                tests/test_admm_pallas.py (violation < 1e-2 after the
                rescue jumps); identity at num_iters=0 and
                restart-permutation invariance;
-  7. admm_path solve_restarts(improve=ADMM, num_iters=50) on the bench form
+  8. admm_path solve_restarts(improve=ADMM, num_iters=50) on the bench form
                at R = 1,024 and 10,240 from a seeded torch.Generator: ms
                per solve (3 after a warm-up), restarts/s, best (f, v), K3's
                launch count and the host set-up time; then, at each R, K3
                alone and its plain version on the first timed solve's
                starts, both timed: K3 must give that solve's best point
                and equal the plain version bit for bit on every lane;
-  8. admm_golden  boolean least squares through QCQP(prob): RANDOM, CD,
+  9. admm_golden  boolean least squares through QCQP(prob): RANDOM, CD,
                then ADMM(phase1=False) through K3
                (examples/boolean_least_squares.py:45-47 with RANDOM in
                place of SDR), no worse than CD's point under `better` and
                bit for bit equal to the plain version on that restart;
                QCQP.solve(256 restarts, improve=ADMM) through K3 reaches
                violation < 1e-2; a rho below the minimum raises;
-  9. k4        K4 (csrc/ccp_impl.cuh, built as ccp_narrow.cu and
+ 10. k4        K4 (csrc/ccp_impl.cuh, built as ccp_narrow.cu and
                ccp_wide.cu) against its plain version on the card, every
                lane bit for bit, with equal trip counts: the bench form at
                R = 128 (bench.py:240) at the fused defaults, on the starts
@@ -81,24 +95,24 @@ launch no kernel, go first (`plain_runs`: the plain versions that phases
                feasible); the wide instantiation at n = 150, m = 3,
                R = 130 (4 x 5 trips); ptxas' registers, spills and stack of
                both instantiations;
- 10. ccp_path  solve_restarts(improve=DCCP) on the bench form at R = 128 and
+ 11. ccp_path  solve_restarts(improve=DCCP) on the bench form at R = 128 and
                10,240 from a seeded torch.Generator: ms per solve (after
-               a warm-up, 2 solves at R = 128 and 1 at R = 10,240),
+               a warm-up, 1 solve at each R),
                restarts/s, best (f, v), K4's launch count and the host
                set-up time; then K4 alone on the first timed solve's
                starts, which must give that solve's best point
-               (phase 9 held every lane of the R = 128 starts; at 10,240
+               (phase 10 held every lane of the R = 128 starts; at 10,240
                tiles 0, 1 and the last are held against the plain version
                bit for bit), the bound from the trips K4 ran and K4's ms
                per inner trip of the busiest tile;
- 11. ccp_golden  QCQP(prob).improve(DCCP) on sum_squares(x) s.t.
+ 12. ccp_golden  QCQP(prob).improve(DCCP) on sum_squares(x) s.t.
                square(x) == 1 through K4 (one launch, violation < 1e-2,
                equal to the plain version); QCQP.solve(256 restarts,
                improve=DCCP) on boolean least squares through K4 (one
                launch, violation < 1e-2, objective at most 39.92, the
                plain version's on the CPU; the brute-force optimum is
                35.551).
- 12. k5        K5 (csrc/eigh_jacobi.cu) against its plain version on the
+ 13. k5        K5 (csrc/eigh_jacobi.cu) against its plain version on the
                card, eigenvalues and eigenvectors bit for bit: B = 16 at
                n0 = 24, B = 132 at n0 = 101, a ragged B = 5 at n0 = 16 and
                B = 2 at n0 = 200 (the global-memory code), at 8 and 2
@@ -108,7 +122,7 @@ launch no kernel, go first (`plain_runs`: the plain versions that phases
                its matmul plain version; ptxas' registers and spills; the
                times of K5, its plain version and torch.linalg.eigh at
                B = 1 and 132, n0 = 101, 2 sweeps;
- 13. sdr_path  the n = 100 boolean-least-squares SDR (bench.py:287-305):
+ 14. sdr_path  the n = 100 boolean-least-squares SDR (bench.py:287-305):
                the default float32 route (Newton-Schulz) through
                solve_sdr(device="device"), which must pass the acceptance
                gate; the vec route's first 20 iterations bit for bit
@@ -119,7 +133,7 @@ launch no kernel, go first (`plain_runs`: the plain versions that phases
                and on S = 132 drifted n = 100 instances: ms, iterations/s,
                K5 launches, accept rate, worst residual.  No float64
                re-solve runs in this phase;
- 14. sdr_golden  solve_sdr(device="device") on the forms of
+ 15. sdr_golden  solve_sdr(device="device") on the forms of
                tests/tpu_smoke.py:107-128 (boolean LS 28.750, maxcut
                -57.207, circle packing -5.000) and QCQP(prob).suggest(SDR)
                on boolean LS, each accepted by the gate with no float64
@@ -135,10 +149,12 @@ or outside a checkout of the repository, it fails before printing anything.
 
 `python3 chip_smoke.py --profile` adds, before those last lines, a
 torch.profiler breakdown of one solve per route (CD through K1 and through
-K2 at R = 10,240; ADMM through K3 at R = 1,024 and 10,240; DCCP through K4
-at R = 128 and 10,240; the n = 100 SDR's Newton-Schulz and vec routes, 200
-iterations each): kernel time by kernel name, against the unprofiled
-solve's wall time; then K1's time at R = 256 ... 40,960 restarts.
+K2 at R = 10,240, with K2's share of the device time; phase 6's n = 256
+route likewise, and its phase 1 alone beside the whole improve; ADMM
+through K3 at R = 1,024 and 10,240; DCCP through K4 at R = 128 and
+10,240; the n = 100 SDR's Newton-Schulz and vec routes, 200 iterations
+each): kernel time by kernel name, against the unprofiled solve's wall
+time; then K1's time at R = 256 ... 40,960 restarts.
 """
 
 import json
@@ -152,12 +168,12 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 N, M, R_MAIN, SWEEPS = 100, 50, 10240, 10     # bench.py:24-27
-R_K1_CHECK, K1_CHECK_SWEEPS = 1024, 2
+R_K1_CHECK, K1_CHECK_SWEEPS = 1024, 1
 R_K3_CHECK, ADMM_ITERS = 1024, 50             # bench.py:209-210
 R_ADMM = (1024, 10240)                        # bench.py's ADMM shape; 10^4
 R_ADMM_GOLDEN = 256
 R_CCP = (128, 10240)                          # bench.py:240; 10^4
-CCP_REPEATS = {128: 2, 10240: 1}              # timed solves per R
+CCP_REPEATS = {128: 1, 10240: 1}              # timed solves per R
 R_CCP_GOLDEN, CCP_GOLDEN_F_MAX = 256, 39.92
 
 
@@ -165,14 +181,15 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def bench_form_arrays(seed=0):
-    """The bench.py:39-46 problem (dense random, half equalities)."""
+def bench_form_arrays(seed=0, n=N, m=M):
+    """The bench.py:39-46 problem (dense random, half equalities) at
+    bench.py's BENCH_N = n, BENCH_M = m."""
     rng = np.random.default_rng(seed)
-    A = rng.standard_normal((M + 1, N, N)) / np.sqrt(N)
+    A = rng.standard_normal((m + 1, n, n)) / np.sqrt(n)
     P = 0.5 * (A + np.swapaxes(A, -1, -2))
-    q = rng.standard_normal((M + 1, N)) / np.sqrt(N)
-    r = rng.standard_normal(M + 1)
-    is_eq = rng.random(M) < 0.5
+    q = rng.standard_normal((m + 1, n)) / np.sqrt(n)
+    r = rng.standard_normal(m + 1)
+    is_eq = rng.random(m) < 0.5
     return P, q, r, is_eq
 
 
@@ -250,12 +267,16 @@ def _viol_of(p, q, r, eq, act, x):
     return np.where(act, vi, 0.0).max(axis=0)
 
 
-def _k2_rows(seed, m, R, eq_frac=0.5, row_eq=False, eq_row=None):
-    """Random rows for K2; eq_row fixes the static equality pattern."""
+def _k2_rows(seed, m, R, eq_frac=0.5, row_eq=False, eq_row=None, e=None):
+    """Random rows for K2; eq_row fixes the static equality pattern, e
+    the number of equality rows (placed at random)."""
     rng = np.random.default_rng(seed)
     p = rng.standard_normal((m, R)).astype(np.float32)
     q = rng.standard_normal((m, R)).astype(np.float32)
     r = rng.standard_normal((m, R)).astype(np.float32)
+    if e is not None:
+        eq_row = np.zeros(m, bool)
+        eq_row[rng.permutation(m)[:e]] = True
     if row_eq:
         if eq_row is None:
             eq_row = rng.random(m) < eq_frac
@@ -270,37 +291,70 @@ def _k2_rows(seed, m, R, eq_frac=0.5, row_eq=False, eq_row=None):
     return (p, q, r, eq, act, xk, viol), eq_idx
 
 
-def phase_k2(bench_is_eq):
+# K2 beyond the main path's shapes (variant, m, E, R): rows (2m generic,
+# m + E split) on both sides of 32 and 64 (lane l owns rows l mod 32),
+# E = 0 and E = m, ragged R (1, 33, 300: no multiple of a block's 4
+# warps), and one m whose warp slice exceeds a block's 227 KB of shared
+# memory (m + E = 9,800 rows: the global-memory code), at a small R.
+K2_SHAPES = [("generic", 15, None, 300), ("generic", 16, None, 33),
+             ("generic", 17, None, 1), ("generic", 31, None, 300),
+             ("generic", 32, None, 1), ("generic", 33, None, 33),
+             ("split", 31, 0, 300), ("split", 16, 16, 33),
+             ("split", 20, 13, 1), ("split", 63, 0, 33),
+             ("split", 32, 32, 300), ("split", 40, 25, 300),
+             ("split", 4900, 4900, 2)]
+
+
+def k2_bound(probes, m, e, nbytes):
+    """K2's bound by the formula of the kernels line: C_ROW operations per
+    row (m + E) per probe, the inputs read once and v written once."""
+    return bound(probes * (m + e) * C_ROW, nbytes)
+
+
+def k2_check(args, kw, timed=False):
+    """K2 against its plain version on the card, every lane bit for bit
+    (-fmad=false on both sides, as tests/test_torch_gpu.py); with timed,
+    both timed by CUDA events.  Returns the lanes, the probes the plain
+    version made and the bytes K2 must move."""
     import torch
     from qcqp_tpu_torch.kernels.onevar_kernel import (
         bisect_accept, phase1_coordinate_update, phase1_coordinate_update_ref)
+    v_k = phase1_coordinate_update(*args, **kw)
+    bisect_accept.probes = 0
+    v_p = phase1_coordinate_update_ref(*args, **kw)
+    probes = int(bisect_accept.probes)
+    torch.cuda.synchronize()
+    v_k, v_p = v_k.cpu().numpy(), v_p.cpu().numpy()
+    diff = np.abs(v_k - v_p)
+    n_diff = int((v_k.view(np.int32) != v_p.view(np.int32)).sum())
+    if n_diff:
+        raise AssertionError(
+            f"K2 disagrees with its plain version on {n_diff} of "
+            f"{len(v_k)} lanes, max |dv| {float(diff.max())}")
+    # the split variant reads the equality rows through its int32 list and
+    # never reads is_eq
+    eq_idx = kw.get("eq_idx")
+    read = args if eq_idx is None else args[:3] + args[4:]
+    nbytes = (sum(a.numel() * a.element_size() for a in read)
+              + (0 if eq_idx is None else 4 * len(eq_idx)) + 4 * len(v_k))
+    out = {"lanes_identical": len(v_k), "max_abs_dv": float(diff.max()),
+           "moved": int((v_k != args[5].cpu().numpy()).sum()),
+           "probes": probes, "bytes": nbytes}
+    if timed:
+        out["ms"] = cuda_ms(lambda: phase1_coordinate_update(*args, **kw), 5)
+        out["plain_ms"] = cuda_ms(
+            lambda: phase1_coordinate_update_ref(*args, **kw), 2)
+    return out
+
+
+def phase_k2(bench_is_eq):
+    import torch
+    from qcqp_tpu_torch.kernels.onevar_kernel import launch_geometry
 
     def run(arrays, eq_idx, timed=False):
         args = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
                 for a in arrays]
-        v_k = phase1_coordinate_update(*args, eq_idx=eq_idx)
-        bisect_accept.probes = 0
-        v_p = phase1_coordinate_update_ref(*args, eq_idx=eq_idx)
-        probes = int(bisect_accept.probes)
-        torch.cuda.synchronize()
-        v_k, v_p = v_k.cpu().numpy(), v_p.cpu().numpy()
-        diff = np.abs(v_k - v_p)
-        n_diff = int((v_k != v_p).sum())
-        # -fmad=false on both sides: bit for bit, as tests/test_torch_gpu.py
-        if n_diff:
-            raise AssertionError(
-                f"K2 disagrees with its plain version on {n_diff} of "
-                f"{len(v_k)} lanes, max |dv| {float(diff.max())}")
-        out = {"lanes_identical": len(v_k), "max_abs_dv": float(diff.max()),
-               "probes": probes,
-               "bytes": sum(a.numel() * a.element_size() for a in args)
-               + 4 * len(v_k)}
-        if timed:
-            out["ms"] = cuda_ms(
-                lambda: phase1_coordinate_update(*args, eq_idx=eq_idx), 5)
-            out["plain_ms"] = cuda_ms(
-                lambda: phase1_coordinate_update_ref(*args, eq_idx=eq_idx), 2)
-        return out
+        return k2_check(args, {"eq_idx": eq_idx}, timed)
 
     gen_arrays, _ = _k2_rows(11, M, R_MAIN)
     generic = run(gen_arrays, None, timed=True)
@@ -316,17 +370,144 @@ def phase_k2(bench_is_eq):
         arrays, idx = _k2_rows(100 + k, 9, 128, eq_frac, row_eq=True)
         recipes.append(run(arrays, idx))
         recipes.append(run(arrays, None))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes = []
+    for k, (variant, m, e, R) in enumerate(K2_SHAPES):
+        t0 = time.perf_counter()
+        arrays, idx = _k2_rows(200 + k, m, R, row_eq=variant == "split",
+                               e=e)
+        res = run(arrays, idx)
+        warps, warp_floats, _, gmem = launch_geometry(
+            m, e or 0, variant == "split", R, sms)
+        shapes.append({"variant": variant, "m": m, "E": e, "R": R,
+                       "rows": m + e if variant == "split" else 2 * m,
+                       "warps_a_block": warps,
+                       "bytes_a_warp": 4 * warp_floats,
+                       "global_rows": gmem,
+                       **{k: res[k] for k in ("lanes_identical", "moved",
+                                              "probes")},
+                       "seconds": time.perf_counter() - t0})
+    if not any(s["global_rows"] for s in shapes):
+        raise AssertionError("no K2 shape ran the global-memory rows")
     worst = max(r["max_abs_dv"] for r in [generic, split] + recipes)
+    E = len(split_idx)
     emit({"phase": "k2", "m": M, "R": R_MAIN, "generic": generic,
           "split": split,
           "recipes_lanes_identical": sum(r["lanes_identical"]
                                          for r in recipes),
-          "max_abs_dv": worst})
-    E = len(split_idx)
+          "shapes": shapes, "max_abs_dv": worst,
+          "ptxas": _ptxas("phase1_kernel"),
+          "geometry_at_split_shape": dict(zip(
+              ("warps_a_block", "floats_a_warp", "shared_bytes_a_block",
+               "global_rows"),
+              launch_geometry(M, E, True, R_MAIN, sms)))})
     return {"max_abs_err": worst, "ms": split["ms"],
             "plain_ms": split["plain_ms"],
             "shape": f"m={M}, E={E}, R={R_MAIN} (split)",
-            **bound(split["probes"] * (M + E) * C_ROW, split["bytes"])}
+            **k2_bound(split["probes"], M, E, split["bytes"])}
+
+
+# The default CD route above n = 128 (`_mega_fits` false: phase 1 through
+# K2 once per coordinate): bench.py's form at BENCH_N=256, BENCH_M=20.
+N_K2, M_K2 = 256, 20
+R_K2_CHECK, K2_CHECK_SWEEPS = 256, 2
+
+
+def phase_k2_route(arrays):
+    """solve_restarts on the n = 256, m = 20 form at R = 10,240, 10 sweeps,
+    with no mega= argument: one warm-up (one sweep) and 3 timed solves, K1
+    0 launches and K2 at least n; K2 alone on the inputs of one of the
+    route's launches (coordinate n/2 of the warm-up's sweep), against its
+    plain version and timed; then the route at R = 256, 2 sweeps, every
+    restart bit for bit against the same route with K2's plain version in
+    K2's place (swapped here only)."""
+    import torch
+    from qcqp_tpu_torch.convert import form_from_numpy
+    from qcqp_tpu_torch.kernels import onevar_kernel as k2
+    from qcqp_tpu_torch.kernels.cd_sweep_kernel import two_phase_sweeps
+    from qcqp_tpu_torch.parallel.restarts import solve_restarts, suggest_batch
+    from qcqp_tpu_torch.solvers import coord_descent_fused as fused
+    form = form_from_numpy(*arrays, device="cuda", dtype=torch.float32)
+    if fused._mega_fits(form):
+        raise AssertionError("the n = 256 form would take K1's route")
+    eq_idx = form.eq_idx()
+    E = len(eq_idx)
+
+    def solve(seed, sweeps=SWEEPS):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return solve_restarts(form, R_MAIN, gen, num_iters=sweeps)
+
+    kernel, captured = fused.phase1_coordinate_update, []
+
+    def capture(*args, **kw):
+        if len(captured) == N_K2 // 2:
+            captured.append(([t.clone() for t in args], kw))
+        else:
+            captured.append(None)
+        return kernel(*args, **kw)
+    fused.phase1_coordinate_update = capture
+    try:
+        solve(0, sweeps=1)          # warm-up: one sweep, as phase 11's
+    finally:
+        fused.phase1_coordinate_update = kernel
+    args, kw = captured[N_K2 // 2]
+    two_phase_sweeps.launches = 0
+    k2.phase1_coordinate_update.launches = 0
+    times, results = [], []
+    for seed in (1, 2, 3):
+        ms, res = host_ms(lambda: solve(seed))
+        times.append(ms)
+        results.append(res)
+    launches = {"k1": two_phase_sweeps.launches,
+                "k2": k2.phase1_coordinate_update.launches}
+    for (x, f, v) in results:
+        if not (torch.isfinite(x).all() and x.shape == (N_K2,)
+                and bool(torch.isfinite(f)) and bool(torch.isfinite(v))):
+            raise AssertionError("the K2 route returned a non-finite point")
+    if launches["k1"] != 0 or launches["k2"] < 3 * N_K2:
+        raise AssertionError(f"K2 route launch counts {launches}")
+
+    alone = k2_check(args, kw, timed=True)
+
+    xs = suggest_batch(form, R_K2_CHECK,
+                       torch.Generator(device="cuda").manual_seed(4))
+    before = k2.phase1_coordinate_update.launches
+    x_k = fused.improve_coord_descent_fused(form, xs,
+                                            num_iters=K2_CHECK_SWEEPS)
+    check_launches = k2.phase1_coordinate_update.launches - before
+    fused.phase1_coordinate_update = k2.phase1_coordinate_update_ref
+    try:
+        x_p = fused.improve_coord_descent_fused(form, xs,
+                                                num_iters=K2_CHECK_SWEEPS)
+    finally:
+        fused.phase1_coordinate_update = kernel
+    xk_, xp_ = x_k.cpu().numpy(), x_p.cpu().numpy()
+    same = (xk_.view(np.int32) == xp_.view(np.int32)).all(axis=1)
+    if not same.all() or check_launches < N_K2:
+        raise AssertionError(
+            f"the K2 route at R = {R_K2_CHECK} differs from its run with "
+            f"K2's plain version on {int((~same).sum())} restarts "
+            f"({check_launches} K2 launches)")
+
+    ms_route = float(np.median(times))
+    f_best, v_best = float(results[0][1]), float(results[0][2])
+    b = k2_bound(alone["probes"], M_K2, E, alone["bytes"])
+    emit({"phase": "k2_route", "n": N_K2, "m": M_K2, "E": E, "R": R_MAIN,
+          "sweeps": SWEEPS, "ms_per_solve": times,
+          "restarts_per_s": R_MAIN / ms_route * 1e3,
+          "best_f": f_best, "best_viol": v_best,
+          "launches": launches,
+          "k2_launches_per_solve": launches["k2"] / 3,
+          "k2_alone": {"coordinate": N_K2 // 2, **alone, **b},
+          "vs_plain": {"R": R_K2_CHECK, "sweeps": K2_CHECK_SWEEPS,
+                       "restarts_identical": int(same.sum()),
+                       "k2_launches": check_launches,
+                       "moved": int((x_k != xs).any(dim=1).sum())}})
+    return {"launches": launches["k2"] // 3, "ms": alone["ms"],
+            "max_abs_err": alone["max_abs_dv"],
+            "plain_ms": alone["plain_ms"], "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"], "ms_per_solve": ms_route,
+            "shape": f"n={N_K2}, m={M_K2}, E={E}, R={R_MAIN} (split)"}
 
 
 def _viols_objs(P, q, r, is_eq, xs):
@@ -374,12 +555,12 @@ def _margins(name, v_ref, o_ref, v_new, o_new):
 # (a warp's lanes own rows i = lane mod 32), n = 1 and n = 128 at the
 # largest m that the CD route sends to K1, n = 8 at m = 300; R = 1 and
 # 300 (no multiple of a block's 4 warps), each lane bit for bit.
-K1_SHAPES = [(9, 30, 0.0, 300, 4), (9, 30, 1.0, 1, 4), (9, 31, 0.0, 1, 4),
-             (9, 31, 1.0, 300, 4), (9, 32, 0.0, 300, 4),
-             (9, 32, 1.0, 300, 4), (9, 63, 0.0, 300, 3),
+K1_SHAPES = [(9, 30, 0.0, 300, 3), (9, 30, 1.0, 1, 3), (9, 31, 0.0, 1, 3),
+             (9, 31, 1.0, 300, 3), (9, 32, 0.0, 300, 3),
+             (9, 32, 1.0, 300, 3), (9, 63, 0.0, 300, 3),
              (9, 63, 1.0, 1, 3), (9, 64, 0.0, 1, 3), (9, 64, 1.0, 300, 3),
              (1, 1278, 0.0, 100, 3), (1, 1278, 1.0, 30, 3),
-             (128, 78, 0.0, 300, 2), (128, 78, 1.0, 300, 2),
+             (128, 78, 0.0, 300, 1), (128, 78, 1.0, 300, 1),
              (8, 300, 0.0, 300, 3), (8, 300, 1.0, 300, 3)]
 
 
@@ -488,7 +669,7 @@ def phase_k1(arrays):
             "ms": ms_k, "plain_ms": ms_p}
         if name == "two_phase":
             x_main = xk
-    # No bench lane is viol_tol-feasible after 2 sweeps, so phase 2 never
+    # No bench lane is viol_tol-feasible after 1 sweep, so phase 2 never
     # runs above; on boolean least squares most lanes reach it.
     Pb, qb, rb, eqb = boolean_ls_arrays()
     Pbt, qbt, rbt = (torch.tensor(a, dtype=torch.float32, device="cuda")
@@ -1616,31 +1797,46 @@ def _device_ms_by_kernel(prof):
     return sorted(out.items(), key=lambda kv: -kv[1][0])
 
 
-def _profile_solve(solve, **label):
+def _profile_solve(solve, kernel=None, top=6, host=True, **label):
     """One profiled solve after a warm-up and an unprofiled one: kernel
-    time by name and the card's idle share of the unprofiled wall time."""
+    time by name and the card's idle share of the unprofiled wall time;
+    with `kernel` (a substring of a kernel's name), that kernel's device
+    time, launches and share of the device time, and the launches of
+    everything else (the route's torch operations).  host=False records
+    the device only, which keeps the trace of a solve of many launches
+    short."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     solve()                                            # warm-up
     wall_ms, _ = host_ms(solve)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * host
+                 + [ProfilerActivity.CUDA]) as prof:
         solve()
         torch.cuda.synchronize()
     kernels = _device_ms_by_kernel(prof)
     if not kernels:
         raise AssertionError("the profiler recorded no device time")
     device_ms = sum(ms for _, (ms, _) in kernels)
-    emit({"phase": "profile", **label, "wall_ms_unprofiled": wall_ms,
-          "device_ms": device_ms, "idle_share": 1.0 - device_ms / wall_ms,
-          "top": [[name[:60], ms, count]
-                  for name, (ms, count) in kernels[:6]]})
+    out = {"phase": "profile", **label, "wall_ms_unprofiled": wall_ms,
+           "device_ms": device_ms, "idle_share": 1.0 - device_ms / wall_ms,
+           "device_launches": sum(c for _, (_, c) in kernels),
+           "top": [[name[:60], ms, count]
+                   for name, (ms, count) in kernels[:top]]}
+    if kernel is not None:
+        ms, count = (sum(v[i] for name, v in kernels if kernel in name)
+                     for i in (0, 1))
+        out[kernel] = {"device_ms": ms, "launches": count,
+                       "share_of_device": ms / device_ms,
+                       "other_launches": out["device_launches"] - count,
+                       "other_device_ms": device_ms - ms}
+    emit(out)
 
 
 def phase_profile(arrays):
     """One profiled solve per route (CD through K1 and K2 at R = 10,240,
-    ADMM through K3 at R = 1,024 and 10,240, DCCP through K4, the SDR's
-    Newton-Schulz and vec routes), and K1's time over R."""
+    the default CD route at n = 256 and its phases' split, ADMM through K3
+    at R = 1,024 and 10,240, DCCP through K4, the SDR's Newton-Schulz and
+    vec routes), and K1's time over R."""
     import torch
     import qcqp_tpu_torch as qt
     from qcqp_tpu_torch.convert import form_from_numpy
@@ -1654,7 +1850,30 @@ def phase_profile(arrays):
     for route, mega in (("k1", None), ("k2", False)):
         _profile_solve(lambda: solve_restarts(form, R_MAIN, gen(),
                                               num_iters=SWEEPS, mega=mega),
+                       kernel="phase1_kernel" if mega is False else None,
                        route=route, R=R_MAIN, sweeps=SWEEPS)
+    # the default route above n = 128 (phase k2_route), and its phase 1
+    # alone on the same starts: the rest of the solve is the phase-2 gate,
+    # the unfused phase 2 and the best point
+    from qcqp_tpu_torch.solvers import coord_descent_fused as fused
+    form2 = form_from_numpy(*bench_form_arrays(0, N_K2, M_K2), device="cuda",
+                            dtype=torch.float32)
+    _profile_solve(lambda: solve_restarts(form2, R_MAIN, gen(),
+                                          num_iters=SWEEPS),
+                   kernel="phase1_kernel", top=10, host=False,
+                   route="k2_default",
+                   n=N_K2, m=M_K2, R=R_MAIN, sweeps=SWEEPS)
+    xs2 = suggest_batch(form2, R_MAIN, gen())
+    ms_p1, x1 = host_ms(lambda: fused.coord_descent_phase1_fused(
+        form2, xs2, SWEEPS, eq_idx=form2.eq_idx()))
+    ms_all, _ = host_ms(lambda: fused.improve_coord_descent_fused(
+        form2, xs2, num_iters=SWEEPS))
+    from qcqp_tpu_torch.core import max_violation_batch
+    emit({"phase": "profile", "route": "k2_default_split", "n": N_K2,
+          "R": R_MAIN, "phase1_ms": ms_p1, "improve_ms": ms_all,
+          "phase2_and_gate_ms": ms_all - ms_p1,
+          "feasible_after_phase1": int((max_violation_batch(form2, x1)
+                                        < 1e-2).sum())})
     for R in R_ADMM:
         _profile_solve(lambda: solve_restarts(form, R, gen(), improve=qt.ADMM,
                                               num_iters=ADMM_ITERS),
@@ -1689,8 +1908,8 @@ def plain_runs(arrays):
     """The longest plain-version runs, made while nvcc builds the kernels
     (they launch none): K1's on the starts of the main path's first timed
     solve at its full shape (phase 5), K4's on the DCCP path's R = 128
-    starts (phase 9), on tiles 0, 1 and the last of its R = 10,240 starts
-    (phase 10) and on K4's wide case (phase 9).  Their times are taken
+    starts (phase 10), on tiles 0, 1 and the last of its R = 10,240 starts
+    (phase 11) and on K4's wide case (phase 10).  Their times are taken
     while the build's last nvcc process runs on another core."""
     import torch
     from qcqp_tpu_torch.convert import form_from_numpy
@@ -1772,6 +1991,8 @@ def main():
     timed("golden", phase_golden)
     launches, ms_main, ms_k1, ms_plain, k1_main_err, k1_bound = \
         timed("main_path", phase_main, arrays, plain)
+    k2_route = timed("k2_route", phase_k2_route,
+                     bench_form_arrays(0, N_K2, M_K2))
     k3_err = timed("k3", phase_k3, arrays)
     admm = timed("admm_path", phase_admm_path, arrays)
     timed("admm_golden", phase_admm_golden)
@@ -1804,10 +2025,20 @@ def main():
         {"name": "K2 phase1_coordinate_update", "route": "cuda",
          "source": "qcqp_tpu_torch/csrc/onevar_phase1.cu",
          "replaces": "qcqp_tpu/kernels/onevar_pallas.py:502",
-         "launches": launches["k2"], "max_abs_err": k2["max_abs_err"],
+         "design": "redesigned: one warp per restart, rows and candidates "
+                   "over lanes, inputs staged once into shared memory",
+         "launches": launches["k2"],
+         "max_abs_err": max(k2["max_abs_err"], k2_route["max_abs_err"]),
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
-         "library_ms": None, "shape": k2["shape"]},
+         "library_ms": None, "shape": k2["shape"],
+         "launches_by_route": {
+             f"n={N}, m={M}, mega=False, one solve": launches["k2"],
+             f"n={N_K2}, m={M_K2}, default, per solve":
+                 k2_route["launches"]},
+         "at_k2_route": {k: k2_route[k]
+                         for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                   "bound_by", "ms_per_solve")}},
         {"name": "K3 admm_phase", "route": "cuda",
          "source": "qcqp_tpu_torch/csrc/admm.cu",
          "replaces": "qcqp_tpu/kernels/admm_pallas.py:407",

@@ -57,45 +57,16 @@
 #include <cstdint>
 
 #include "onevar_common.cuh"
+#include "warp_common.cuh"
 
 using namespace qk;
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
 // Restarts a block.  Blocks of 4 warps, at most 48 registers a thread (10
 // blocks, 40 warps an SM): a block frees its slot when its slowest restart
 // ends, so small blocks lose less to restarts of unequal length.
 constexpr int kMaxWarps = 4;
-
-__device__ __forceinline__ float warp_nmax(float w) {
-  for (int off = 16; off > 0; off >>= 1)
-    w = nmax(w, __shfl_xor_sync(kFull, w, off));
-  return w;
-}
-
-// The lexicographic minimum of (val, d, idx) over the warp, carrying c.
-// idx is unique, so every lane ends with the same winner.
-__device__ __forceinline__ bool lex_before(float v1, float d1, int i1,
-                                           float v2, float d2, int i2) {
-  return v1 < v2 || (v1 == v2 && (d1 < d2 || (d1 == d2 && i1 < i2)));
-}
-
-__device__ __forceinline__ void warp_argmin(float& val, float& d, int& idx,
-                                            float& c) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(kFull, val, off);
-    const float od = __shfl_xor_sync(kFull, d, off);
-    const int oi = __shfl_xor_sync(kFull, idx, off);
-    const float oc = __shfl_xor_sync(kFull, c, off);
-    if (lex_before(ov, od, oi, val, d, idx)) {
-      val = ov;
-      d = od;
-      idx = oi;
-      c = oc;
-    }
-  }
-}
 
 struct WarpRestart {
   const float* Pt;      // (n, n, m+1)
@@ -215,35 +186,11 @@ struct WarpRestart {
   }
 
   // Probe interface of bisect_accept (_phase1_loop's feasible_point and
-  // viol_of).  The witness (witness_scan of onevar_common.cuh): the
-  // candidates F_C1 of rows 0..m+E-1, then -inf; the feasible one nearest
-  // xk, the lowest index on ties (a NaN distance counts as +inf); if no
-  // feasible one has a finite distance, the first feasible one.
+  // viol_of): the witness of the rows at slack s (warp_witness).
   __device__ bool probe(float s, float xk, float& xi) {
     __syncwarp();  // the previous probe's scans are done
     canon_all(s, true);
-    const int nr = m + e;
-    float val = QK_INF, d = QK_INF, c = 0.0f;
-    int idx = INT_MAX;
-    for (int t = lane; t <= nr; t += 32) {
-      const float cv = t < nr ? st.at(F_C1, t) : -QK_INF;
-      if (!member(cv, st)) continue;
-      float dd = fabsf(cv - xk);
-      if (isnan(dd)) dd = QK_INF;
-      if (idx == INT_MAX || dd < d) {
-        val = 0.0f;
-        d = dd;
-        idx = t;
-        c = cv;
-      }
-    }
-    warp_argmin(val, d, idx, c);
-    if (idx == INT_MAX) {  // none feasible: candidate 0, unused
-      xi = nr > 0 ? st.at(F_C1, 0) : -QK_INF;
-      return false;
-    }
-    xi = c;
-    return true;
+    return warp_witness(st, xk, lane, xi);
   }
 
   // The positive side of every row and the negative side of the E

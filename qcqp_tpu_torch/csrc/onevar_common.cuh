@@ -5,15 +5,12 @@
 //   canon_row      _canon_leq (:40-102) + the caller's inactive-row
 //                  neutralization + _g_form (:105-128)
 //   member         one candidate's column of feas_matrix_from_canon (:131-158)
-//   witness_scan   _feasible_point_from_canon (:161-184)
 //   bisect_accept  _bisect_accept (:246-391)
 //
-// In K2 one CUDA thread is one restart (one TPU lane), and per-row
-// canonical data lives in global scratch laid out (field, row, R): field f
-// of row j of restart `tid` is at base[(f * nr + j) * R + tid], so a warp
-// touches 32 neighbouring words.  K1 runs a restart on a warp and keeps its
-// rows in shared memory (a RowStore with R = 1); there every lane calls
-// bisect_accept with the same values, and its probe is warp-collective.
+// Both kernels run a restart on a warp and keep its canonical rows in the
+// warp's slice of shared memory (a RowStore with R = 1); every lane calls
+// bisect_accept with the same values, and its probe is warp-collective
+// (warp_common.cuh holds the collective pieces, the witness among them).
 //
 // Numerics follow the JAX code operation by operation:
 //   * nmax/nmin propagate NaN like jnp.maximum/jnp.minimum (fmaxf/fminf
@@ -98,8 +95,8 @@ __device__ __forceinline__ CanonRow canon_row(float p, float q, float c,
   return row;
 }
 
-// Per-restart view of the (field, row) scratch; `base` already points at
-// the restart's column.
+// Per-restart view of the (field, row) store: field f of row j at
+// base[(f * nr + j) * R]; `base` already points at the restart's rows.
 struct RowStore {
   float* base;
   int nr;
@@ -136,34 +133,6 @@ __device__ __forceinline__ bool member(float c, const RowStore& st) {
   return true;
 }
 
-// _feasible_point_from_canon: candidates are the stored F_C1 rows in order,
-// then -inf.  Returns whether any candidate is feasible and, in `witness`,
-// the feasible candidate nearest xk (first on ties), else the first
-// feasible one, else candidate 0.
-__device__ __forceinline__ bool witness_scan(const RowStore& st, float xk,
-                                             float& witness) {
-  bool exists = false, have_first = false;
-  float best_d = QK_INF, best_c = 0.0f, first_c = 0.0f;
-  for (int i = 0; i <= st.nr; ++i) {
-    const float c = i < st.nr ? st.at(F_C1, i) : -QK_INF;
-    if (i == 0) best_c = first_c = c;
-    if (!member(c, st)) continue;
-    exists = true;
-    if (!have_first) {
-      first_c = c;
-      have_first = true;
-    }
-    float d = fabsf(c - xk);
-    if (isnan(d)) d = QK_INF;
-    if (d < best_d) {
-      best_d = d;
-      best_c = c;
-    }
-  }
-  witness = best_d < QK_INF ? best_c : first_c;
-  return exists;
-}
-
 __device__ __forceinline__ float gap_tgt(float ss, float tol, float rel) {
   return tol + rel * nmax(ss, 0.0f);
 }
@@ -172,7 +141,7 @@ __device__ __forceinline__ float gap_tgt(float ss, float tol, float rel) {
 //   bool probe(float s, float xk, float& xi)   witness at slack s
 //   float viol_of(float v)                     restriction violation at v
 // The JAX loop runs while any lane of its tile is live; a lane that is not
-// live is left unchanged by the body, so a per-thread loop gives the same
+// live is left unchanged by the body, so a loop per restart gives the same
 // per-lane result.  With warm == true, (wlo, whi) carry the lane's bracket
 // in and out (the accepted slack, or +inf, in whi).
 template <class Probe>

@@ -43,8 +43,8 @@ _F = ctypes.c_float
 
 # C entry points and their argument types (see csrc/*.cu).
 _SIGNATURES = {
-    "qk_phase1_update": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
-                         _P, _I, _I, _F, _F, _I, _I, _P],
+    "qk_phase1_update": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I,
+                         _I, _F, _F, _I, _I, _I, _I, _P],
     "qk_cd_sweeps": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _F, _I,
                      _I, _I, _I, _I, _P],
     "qk_admm_phase": [_P] * 15 + [_I, _I, _I, _I, _I, _F, _F, _F, _F, _F,

@@ -27,7 +27,8 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .onevar_kernel import (bisect_accept, canon_leq, feas_matrix_from_canon,
+from .onevar_kernel import (SMEM_BLOCK_MAX, bisect_accept, canon_leq,
+                            feas_matrix_from_canon,
                             feasible_point_rows_split, neutralize,
                             viol_of_split, _check_cuda)
 
@@ -248,7 +249,6 @@ def phase1_sweeps_ref(P, q, r, eq_idx, xs, num_iters=1000, viol_tol=1e-2,
 
 # K1's launch geometry (csrc/cd_sweep.cu): one warp per restart, each with
 # its state in its slice of the block's dynamic shared memory.
-SMEM_BLOCK_MAX = 232448        # bytes a block may opt in to on the H100
 MAX_WARPS = 4                  # restarts a block (kMaxWarps in the source)
 
 

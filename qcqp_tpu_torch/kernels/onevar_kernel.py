@@ -22,6 +22,8 @@ whole tile; for every lane without NaN the results are the same.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _build
@@ -287,15 +289,58 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+# K2's launch geometry (csrc/onevar_phase1.cu): one warp per restart, each
+# with its staged inputs and canonical rows in its slice of the block's
+# dynamic shared memory, or of a global scratch where a slice exceeds it.
+SMEM_BLOCK_MAX = 232448        # bytes a block may opt in to on the H100
+MAX_WARPS = 4                  # restarts a block (kMaxWarps in the source)
+
+
+def launch_geometry(m, e, split, R=None, sms=None):
+    """(warps a block, floats a warp, shared bytes a block, global rows)
+    for K2 at m rows and E equality rows.  A warp holds p, q, r, act (and
+    eq in the generic variant), m floats each, and four canonical fields
+    of its rows (m + E split, 2m generic).  Up to MAX_WARPS warps within
+    SMEM_BLOCK_MAX; given R and the card's SM count, fewer, so that a
+    small batch spreads over the SMs.  Where one warp's slice exceeds
+    SMEM_BLOCK_MAX, the slices live in a global scratch (global rows
+    True, no shared memory) and the kernel runs the same code on it."""
+    rows = m + e if split else 2 * m
+    warp_floats = (4 if split else 5) * m + 4 * rows
+    per_warp = 4 * warp_floats
+    gmem = per_warp > SMEM_BLOCK_MAX
+    warps = MAX_WARPS if gmem or per_warp == 0 else \
+        min(MAX_WARPS, SMEM_BLOCK_MAX // per_warp)
+    if R is not None and sms:
+        warps = max(1, min(warps, R // sms))
+    return warps, warp_floats, 0 if gmem else warps * per_warp, gmem
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=64)
+def _eq_index(eq_idx, m, device):
+    """The equality rows as the int32 device list K2 reads them through,
+    made once per (pattern, device)."""
+    if any(not 0 <= i < m for i in eq_idx):
+        raise ValueError(f"phase1_coordinate_update: eq_idx {eq_idx} has "
+                         f"rows outside [0, {m})")
+    return torch.tensor(eq_idx, dtype=torch.int32, device=device)
+
+
 def phase1_coordinate_update(p, q, r, is_eq, active, xk, viol,
                              tol=DEFAULT_TOL, viol_tol=1e-2, n_bisect=40,
                              eq_idx=None):
     """Fused phase-1 coordinate solve for a restart batch.
 
     p, q, r, is_eq, active: (m, R); xk, viol: (R,).  Returns v (R,).  Any R
-    (the kernel masks the ragged block).  eq_idx: optional static tuple of
-    the equality rows; when given, `is_eq` is ignored and the reversed rows
-    of inequality constraints are skipped structurally.
+    (the kernel's ragged last block has fewer warps) and any m.  eq_idx:
+    optional static tuple of the equality rows; when given, `is_eq` is
+    ignored and the reversed rows of inequality constraints are skipped
+    structurally.
 
     CPU tensors run the plain version.  CUDA tensors launch the kernel
     (float32 only, counted in `phase1_coordinate_update.launches`).
@@ -304,33 +349,31 @@ def phase1_coordinate_update(p, q, r, is_eq, active, xk, viol,
         return phase1_coordinate_update_ref(p, q, r, is_eq, active, xk, viol,
                                             tol, viol_tol, n_bisect, eq_idx)
     m, R = p.shape
-    f32 = torch.float32
-    act = active.to(f32).contiguous()
-    if eq_idx is None:
-        eq = is_eq.to(f32).contiguous()
-        p2 = q2 = r2 = act2 = None
-        e, rows, split = 0, 2 * m, 0
+    dev = p.device
+    act = active.to(torch.float32).contiguous()
+    split = eq_idx is not None
+    if split:
+        eq_idx = tuple(int(i) for i in eq_idx)
+        e, eq = len(eq_idx), None
+        idx = _eq_index(eq_idx, m, dev) if e else None
     else:
-        eq = None
-        e = len(eq_idx)
-        p2, q2, r2, act2 = (_gather_eq(eq_idx, p, q, r, act) if e
-                            else (None,) * 4)
-        rows, split = m + e, 1
-    ins = [p, q, r, act] + ([eq] if eq is not None else []) + \
-        [t for t in (p2, q2, r2, act2) if t is not None]
-    shapes = [(m, R)] * 4 + ([(m, R)] if eq is not None else []) + \
-        [(e, R)] * (4 if e else 0)
+        e, idx = 0, None
+        eq = is_eq.to(torch.float32).contiguous()
+    ins = [p, q, r, act] + ([] if split else [eq])
     _check_cuda("phase1_coordinate_update", ins + [xk, viol],
-                shapes + [(R,), (R,)])
-    v = torch.empty(R, dtype=f32, device=p.device)
-    scratch = torch.empty((4 * rows, R), dtype=f32, device=p.device)
+                [(m, R)] * len(ins) + [(R,), (R,)])
+    warps, warp_floats, _, gmem = launch_geometry(m, e, split, R,
+                                                  _sm_count(dev))
+    v = torch.empty(R, dtype=torch.float32, device=dev)
+    rows = (torch.empty((R, warp_floats), dtype=torch.float32, device=dev)
+            if gmem else None)
     lib = _build.library()
-    stream = torch.cuda.current_stream(p.device).cuda_stream
+    stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.qk_phase1_update(
-        _ptr(p), _ptr(q), _ptr(r), _ptr(eq), _ptr(act), _ptr(p2), _ptr(q2),
-        _ptr(r2), _ptr(act2), e, _ptr(xk), _ptr(viol), _ptr(v),
-        _ptr(scratch), m, R, float(tol), float(viol_tol), int(n_bisect),
-        split, stream)
+        _ptr(p), _ptr(q), _ptr(r), _ptr(eq), _ptr(act), _ptr(idx), e,
+        _ptr(xk), _ptr(viol), _ptr(v), _ptr(rows), m, R, float(tol),
+        float(viol_tol), int(n_bisect), int(split), warps, warp_floats,
+        stream)
     _build.check(rc, "qk_phase1_update")
     phase1_coordinate_update.launches += 1
     return v

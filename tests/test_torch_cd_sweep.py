@@ -72,16 +72,19 @@ def _best(v, o):
     return float(o[feas].min()) if feas.any() else None
 
 
-def _run_pooled(n, m, eq_frac, jax_fn, torch_fn, phase2=True):
+def _run_pooled(n, m, eq_frac, jax_fn, torch_fn, never_worse=False,
+                restarts=128):
+    """never_worse: no restart of the port ends with a larger violation
+    than its start."""
     v_ref, v_new, best_pairs = [], [], []
     for seed in SEEDS:
         arrays, eq_idx, rng = _arrays(n, m, seed, eq_frac)
-        xs = rng.standard_normal((128, n)).astype(F32)
+        xs = rng.standard_normal((restarts, n)).astype(F32)
         xj = np.asarray(jax_fn(arrays, eq_idx, xs))
         xt = torch_fn(arrays, eq_idx, xs)
         vj, oj = _quality(arrays, xj)
         vt, ot = _quality(arrays, xt)
-        if not phase2:                           # never worse than the start
+        if never_worse:
             assert (vt <= _quality(arrays, xs)[0] + 1e-3).all()
         v_ref.append(vj)
         v_new.append(vt)
@@ -119,7 +122,7 @@ def test_phase1_matches_jax_pooled():
                                 num_iters=SWEEPS, interpret=True)
     _run_pooled(8, 4, 0.5, jax_fn,
                 lambda a, e, x: _torch_k1(tk.phase1_sweeps, a, e, x),
-                phase2=False)
+                never_worse=True)
 
 
 def test_zero_sweeps_is_identity():
@@ -210,7 +213,26 @@ def test_fused_k2_route_matches_jax_pooled():
         return tfused.coord_descent_phase1_fused(
             form, torch.from_numpy(xs), num_iters=SWEEPS,
             eq_idx=eq_idx).numpy()
-    _run_pooled(7, 3, 0.5, jax_fn, torch_fn, phase2=False)
+    _run_pooled(7, 3, 0.5, jax_fn, torch_fn, never_worse=True)
+
+
+def test_default_route_above_128_matches_jax_pooled():
+    """Above n = 128 `_mega_fits` is false, so improve_coord_descent_fused
+    runs phase 1 through K2 once per coordinate (here its plain version)
+    and then the unfused phase 2, as the JAX route does with its Pallas
+    kernel in interpret=True."""
+    def jax_fn(arrays, eq_idx, xs):
+        form = JForm(*map(jnp.asarray, arrays))
+        assert not jfused._mega_fits(form)
+        return jfused.improve_coord_descent_fused(
+            form, jnp.asarray(xs), num_iters=2, interpret=True)
+
+    def torch_fn(arrays, eq_idx, xs):
+        form = form_from_numpy(*arrays, device="cpu", dtype=torch.float32)
+        assert not tfused._mega_fits(form)
+        return tfused.improve_coord_descent_fused(
+            form, torch.from_numpy(xs), num_iters=2).numpy()
+    _run_pooled(130, 4, 0.5, jax_fn, torch_fn, never_worse=True, restarts=64)
 
 
 def test_improve_fused_routes():

@@ -60,6 +60,95 @@ def test_k2_kernel_equals_plain(cuda, row_eq, m, R):
     assert torch.equal(v, ref)
 
 
+# (variant, m, E, R): rows (2m generic, m + E split) on both sides of 32
+# and 64 (lane l owns rows l mod 32), E = 0 and E = m, ragged R (no
+# multiple of a block's 4 warps), and no rows at all (nothing moves).
+K2_CASES = [("generic", 16, None, 33), ("generic", 33, None, 300),
+            ("generic", 31, None, 1), ("split", 31, 0, 1),
+            ("split", 16, 16, 300), ("split", 20, 13, 33),
+            ("split", 63, 0, 300), ("split", 32, 32, 1),
+            ("split", 40, 25, 33), ("split", 0, 0, 5)]
+
+
+def _k2_split_inputs(seed, m, e, R):
+    """Random rows with exactly e equality rows, as tensors, and eq_idx."""
+    rng = np.random.default_rng(seed)
+    eq_row = np.zeros(m, bool)
+    eq_row[rng.permutation(m)[:e]] = True
+    p, q, r = (rng.standard_normal((m, R)).astype(np.float32)
+               for _ in range(3))
+    eq = np.ascontiguousarray(np.broadcast_to(eq_row[:, None], (m, R)))
+    act = rng.random((m, R)) < 0.9
+    xk = rng.standard_normal(R).astype(np.float32)
+    viol = (_viol_of(p, q, r, eq, act, xk) if m else np.zeros(R))
+    return ((p, q, r, eq, act, xk, viol.astype(np.float32)),
+            tuple(int(i) for i in np.nonzero(eq_row)[0]))
+
+
+def _k2_holds(cuda, variant, m, e, R, seed):
+    """K2 against its plain version, every lane bit for bit, one launch."""
+    from qcqp_tpu_torch.kernels import onevar_kernel as tk
+    if variant == "split":
+        arrays, eq_idx = _k2_split_inputs(seed, m, e, R)
+    else:
+        arrays, eq_idx = _k2_inputs(seed, m, R, False)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+            for a in arrays]
+    before = tk.phase1_coordinate_update.launches
+    v = tk.phase1_coordinate_update(*args, eq_idx=eq_idx)
+    assert tk.phase1_coordinate_update.launches == before + 1
+    ref = tk.phase1_coordinate_update_ref(*args, eq_idx=eq_idx)
+    torch.cuda.synchronize()
+    assert torch.equal(v, ref)
+    assert (v != args[5]).any() == (m > 0)
+
+
+@pytest.mark.parametrize("variant,m,e,R", K2_CASES)
+def test_k2_kernel_equals_plain_across_lanes(cuda, variant, m, e, R):
+    _k2_holds(cuda, variant, m, e, R, m + R)
+
+
+@pytest.mark.parametrize("variant,m,e,R,block_max", [
+    ("split", 40, 25, 33, 1024), ("generic", 20, None, 300, 1024),
+    ("split", 4843, 4843, 2, None)])
+def test_k2_global_rows_equal_plain(cuda, monkeypatch, variant, m, e, R,
+                                    block_max):
+    """The global-memory rows: forced at small m by a smaller block limit,
+    and at m = E = 4,843, whose 232,464-byte warp slice exceeds a block's
+    shared memory."""
+    from qcqp_tpu_torch.kernels import onevar_kernel as tk
+    if block_max is not None:
+        monkeypatch.setattr(tk, "SMEM_BLOCK_MAX", block_max)
+    assert tk.launch_geometry(m, e or 0, variant == "split")[3]
+    _k2_holds(cuda, variant, m, e, R, 7)
+
+
+def test_k2_route_above_128_equals_plain(cuda, monkeypatch):
+    """The default CD route at n = 130 (phase 1 through K2 once per
+    coordinate, then the unfused phase 2) equals, on every restart, the
+    same route with K2's plain version in K2's place."""
+    from qcqp_tpu_torch.convert import form_from_numpy
+    from qcqp_tpu_torch.kernels import cd_sweep_kernel as k1
+    from qcqp_tpu_torch.kernels import onevar_kernel as tk
+    from qcqp_tpu_torch.solvers import coord_descent_fused as fused
+    arrays, rng = _k1_form(130, 4, 1, 0.5)
+    form = form_from_numpy(*arrays, device=cuda, dtype=torch.float32)
+    assert not fused._mega_fits(form)
+    xs = torch.from_numpy(
+        (0.5 * rng.standard_normal((70, 130))).astype(np.float32)).to(cuda)
+    before = (k1.two_phase_sweeps.launches,
+              tk.phase1_coordinate_update.launches)
+    out = fused.improve_coord_descent_fused(form, xs, num_iters=2)
+    assert k1.two_phase_sweeps.launches == before[0]
+    assert tk.phase1_coordinate_update.launches >= before[1] + 130
+    monkeypatch.setattr(fused, "phase1_coordinate_update",
+                        tk.phase1_coordinate_update_ref)
+    want = fused.improve_coord_descent_fused(form, xs, num_iters=2)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert (out != xs).any()
+
+
 def _k1_form(n, m, seed, eq_frac):
     rng = np.random.default_rng(seed)
     A = rng.standard_normal((m + 1, n, n)) / np.sqrt(n)
