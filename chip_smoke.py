@@ -60,15 +60,20 @@ launch no kernel, go first (`plain_runs`: the plain versions that phases
                the route at R = 256, 2 sweeps, every restart bit for bit
                against the same route with K2's plain version in K2's
                place (swapped in this script only);
-  7. k3        K3 (csrc/admm.cu) against its plain version on the card,
-               phase by phase, every lane bit for bit: the bench form,
-               R = 1,024 numpy starts, 50 iterations (phase 1, phase 2
-               after phase 1's better-fold, phase 2 alone as with
-               phase1=False); boolean least squares (semidefinite rows:
-               the bracket doubling runs); the wide-root instance of
-               tests/test_admm_pallas.py (violation < 1e-2 after the
-               rescue jumps); identity at num_iters=0 and
-               restart-permutation invariance;
+  7. k3        K3 (csrc/admm_impl.cuh, one warp per restart) against its
+               plain version on the card, phase by phase, every lane bit
+               for bit: the bench form, R = 1,024 numpy starts, 50
+               iterations (phase 1, phase 2 after phase 1's better-fold,
+               phase 2 alone as with phase1=False); boolean least squares
+               (semidefinite rows: the bracket doubling runs); the
+               wide-root instance of tests/test_admm_pallas.py (violation
+               < 1e-2 after the rescue jumps); identity at num_iters=0 and
+               restart-permutation invariance; then K3_SHAPES (n across
+               the lanes' 32-coordinate chunks, the whole-slab limit 160
+               and 161, where Q_i is streamed in chunks, and 1,024; m = 1
+               and 50; R = 1, 300 and a full block plus one; need_dbl on
+               and off); ptxas' registers, stack and spills of K3 and its
+               launch geometry on the ADMM path;
   8. admm_path solve_restarts(improve=ADMM, num_iters=50) on the bench form
                at R = 1,024 and 10,240 from a seeded torch.Generator: ms
                per solve (3 after a warm-up), restarts/s, best (f, v), K3's
@@ -854,6 +859,79 @@ def wide_root_arrays():
     return P, np.zeros((2, n)), np.array([0.0, 0.25]), np.zeros(1, bool)
 
 
+# K3 on shapes besides the bench form's, (n, m, R, need_dbl, iterations):
+# n across the 32-coordinate chunks a lane owns (1, 31-33, 64, 65), the
+# whole-slab limit (WHOLE_MAX_N = 160) and one past it (161, where Q_i is
+# streamed in chunks), and 1,024; m = 1 and 50 (2 at n = 1,024, whose
+# host eighs would take the phase's time); R = 1, 300 and "block": one full
+# block of as many warps as fit (MAX_WARPS = 16 up to n = 153, fewer above,
+# where the slabs fill the block) and one more restart, launched at that
+# geometry; need_dbl on and off; 10, 6 and 2 iterations (the plain
+# version's time grows with n).  Every lane bit for bit, both phases.
+K3_SHAPES = [(1, 1, 1, True, 10), (31, 50, "block", False, 10),
+             (32, 1, 300, True, 10), (33, 50, 1, True, 10),
+             (64, 1, "block", True, 10), (65, 50, 300, False, 10),
+             (159, 1, "block", False, 6), (160, 50, 1, True, 6),
+             (160, 1, 300, False, 6), (161, 1, 300, True, 6),
+             (161, 50, "block", False, 6), (1024, 1, "block", True, 2),
+             (1024, 2, 1, False, 2)]
+
+
+def k3_shape_arrays(n, m, dbl, seed):
+    """tests/test_torch_gpu.py `_k3_shape_form`: a dense random form with
+    equality rows; with dbl, constraint 1 is semidefinite (x' B B' x / n
+    <= 1/2 + |r|), so K3's bracket doubling runs."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((m + 1, n, n)) / np.sqrt(n)
+    P = 0.5 * (A + np.swapaxes(A, -1, -2))
+    q = rng.standard_normal((m + 1, n)) / np.sqrt(n)
+    r = rng.standard_normal(m + 1)
+    is_eq = rng.random(m) < 0.5
+    if dbl:
+        B = rng.standard_normal((n, n))
+        P[1] = B @ B.T / n
+        r[1] = -abs(r[1]) - 0.5
+        is_eq[0] = False
+    return (P, q, r, is_eq), rng
+
+
+def _k3_shapes():
+    """K3 and its plain version on K3_SHAPES, every lane bit for bit."""
+    import torch
+    from qcqp_tpu_torch.convert import form_from_numpy
+    from qcqp_tpu_torch.kernels import admm_kernel as tk
+    out = []
+    for n, m, R, dbl, iters in K3_SHAPES:
+        arrays, rng = k3_shape_arrays(n, m, dbl, n + m)
+        form = form_from_numpy(*arrays, device="cuda", dtype=torch.float32)
+        d = tk.ADMMFusedData(form)
+        if d.need_dbl != dbl:
+            raise AssertionError(f"K3 shape n={n}, m={m}: need_dbl "
+                                 f"{d.need_dbl}, expected {dbl}")
+        geometry = None
+        if R == "block":
+            warps, rows, _ = tk.launch_geometry(n, m)
+            R, geometry = warps + 1, (warps, rows, None)
+        xs = torch.from_numpy((0.5 * rng.standard_normal((R, n)))
+                              .astype(np.float32)).cuda()
+        res = {"n": n, "m": m, "R": R, "need_dbl": dbl, "iters": iters,
+               "geometry": list((geometry or tk.launch_geometry(
+                   n, m, R, torch.cuda.get_device_properties(0)
+                   .multi_processor_count))[:2])}
+        t0 = time.perf_counter()
+        for phase in (1, 2):
+            xk = tk._launch(d, xs, phase, iters, 1e-2, 1e4, 1e-4,
+                            tk.NW_TRIPS, geometry=geometry)
+            xp = tk.admm_phase_ref(d, xs, phase, num_iters=iters)
+            agree = _k3_agrees(f"K3 phase {phase} at {res}", xk, xp)
+            res[f"phase{phase}"] = {
+                "lanes_identical": agree["lanes_identical"],
+                "moved": int((xk != xs).any(dim=1).sum())}
+        res["seconds"] = time.perf_counter() - t0
+        out.append(res)
+    return out
+
+
 def phase_k3(arrays):
     """K3 against its plain version on the card, phase by phase."""
     import torch
@@ -922,9 +1000,20 @@ def phase_k3(arrays):
     wide_viol = float(max_violation_batch(form, xw)[0])
     if not wide_viol < 1e-2:
         raise AssertionError(f"wide root: violation {wide_viol} >= 1e-2")
+    t0 = time.perf_counter()
+    shapes = _k3_shapes()
+    from qcqp_tpu_torch.kernels.admm_kernel import launch_geometry
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     emit({"phase": "k3", "n": N, "m": M, "R": R_K3_CHECK,
           "iters": ADMM_ITERS, "identity_at_0": True,
-          "permutation_invariant": True, "wide_root_viol": wide_viol, **res})
+          "permutation_invariant": True, "wide_root_viol": wide_viol, **res,
+          "shapes": shapes, "shapes_seconds": time.perf_counter() - t0,
+          "ptxas": _ptxas("admm_phase_kernel"),
+          "geometry_at_admm_path": {
+              R: dict(zip(("warps_a_block", "chunk_rows",
+                           "shared_bytes_a_block"),
+                          launch_geometry(N, M, R, sms)))
+              for R in R_ADMM}})
     return max(v["max_abs_dx"] for v in res.values() if "max_abs_dx" in v)
 
 
@@ -951,12 +1040,12 @@ def phase_admm_path(arrays):
         phase; per live lane-iteration the consensus and projection
         products (2 m n^2 each) and the m projections (10 operations per
         coordinate plus 14 per Newton trip); phase 2 adds the W and P0
-        products.  Bytes: Q and QT, W and P0 once, the starts in and the
-        result out of each phase."""
+        products.  Bytes: Q, W and P0 once, the starts in and the result
+        out of each phase."""
         proj = M * N * (10 + 14 * NW_TRIPS)
         ops = (2 * R * 2 * M * N * N + it1 * (4 * M * N * N + proj)
                + it2 * (4 * M * N * N + 4 * N * N + proj + 5 * N))
-        nbytes = 4 * (2 * M * N * N + 2 * N * N + 2 * M * N + 4 * R * N)
+        nbytes = 4 * (M * N * N + 2 * N * N + 2 * M * N + 4 * R * N)
         return bound(ops, nbytes)
 
     for R in R_ADMM:
@@ -2040,8 +2129,11 @@ def main():
                          for k in ("shape", "ms", "plain_ms", "bound_ms",
                                    "bound_by", "ms_per_solve")}},
         {"name": "K3 admm_phase", "route": "cuda",
-         "source": "qcqp_tpu_torch/csrc/admm.cu",
+         "source": "qcqp_tpu_torch/csrc/admm_impl.cuh",
          "replaces": "qcqp_tpu/kernels/admm_pallas.py:407",
+         "design": "redesigned: one warp per restart, each Q_i staged once "
+                   "per block in shared memory, the consensus fused into "
+                   "the projection loop",
          "launches": admm["launches"],
          "max_abs_err": max(k3_err, admm["max_abs_err"]),
          "ms": admm["ms"], "plain_ms": admm["plain_ms"],

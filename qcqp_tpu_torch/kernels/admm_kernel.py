@@ -2,17 +2,22 @@
 launch (JAX counterpart: qcqp_tpu/kernels/admm_pallas.py).
 
 `admm_phase` is the wrapper: on CUDA float32 tensors it launches the
-hand-written kernel in `csrc/admm.cu`; on CPU tensors it runs
-`admm_phase_ref`, the plain PyTorch version.  A CUDA tensor the kernel
-does not take raises; nothing falls back from the GPU to the plain
-version.  `improve_admm_fused` is the two-phase improve around it, with the
-reference's better-folds between the phases (qcqp.py:281,284-285), as
-plain PyTorch, as they are plain XLA in the JAX package.
+hand-written kernel in `csrc/admm_impl.cuh` (entry `csrc/admm.cu`); on
+CPU tensors it runs `admm_phase_ref`, the plain PyTorch version.  A CUDA
+tensor the kernel does not take raises; nothing falls back from the GPU
+to the plain version.  `improve_admm_fused` is the two-phase improve
+around it, with the reference's better-folds between the phases
+(qcqp.py:281,284-285), as plain PyTorch, as they are plain XLA in the JAX
+package.
 
-Routing rule, decided before any launch: K3 runs for m > 0 and n <= MAX_N
-(one CUDA thread per eigencoordinate, at most 1,024 threads a block);
+Routing rule, decided before any launch: K3 runs for m > 0 and n <= MAX_N;
 m == 0 and wider problems run the unfused path (solvers/admm.py), as the
-JAX package routes n > 1,024 to its vmapped path.
+JAX package routes n > 1,024 to its vmapped path.  Inside K3,
+`launch_geometry` picks the storage from n alone: up to WHOLE_MAX_N the
+whole Q_i is one shared-memory slab and a lane keeps its coordinates in
+registers; above it Q_i is streamed in CHUNK_ROWS-row and -column chunks
+and the lane vectors live in shared memory.  Nothing falls back at run
+time.
 
 What the TPU kernel computes, per restart: the primal and dual copies xh,
 uh (m, n) in per-constraint eigencoordinates; the z-update (the consensus
@@ -31,11 +36,11 @@ ADMM_* environment knobs.
 Exactness.  The kernel is built with -fmad=false, and the plain version
 runs one correctly rounded PyTorch op per kernel op, in the kernel's order:
 the products with Q, W and P0 sum over k in order (`_rowvec`), and every
-sum over the eigencoordinates j is the kernel's block reduction (`_tree_sum`:
-a shuffle tree inside each warp of 32 zero-padded lanes, then the warps in
-order).  Divisions take a tensor divisor, since PyTorch's CUDA division by
-a Python scalar multiplies by its reciprocal.  So K3 equals its plain
-version bit for bit on the card.
+sum over the eigencoordinates j is the kernel's warp reduction (`_tree_sum`:
+a shuffle tree inside each chunk of 32 zero-padded coordinates, then the
+chunks in order).  Divisions take a tensor divisor, since PyTorch's CUDA
+division by a Python scalar multiplies by its reciprocal.  So K3 equals its
+plain version bit for bit on the card.
 """
 
 from __future__ import annotations
@@ -48,11 +53,11 @@ import torch.nn.functional as F
 
 from ..core import QCQPForm, better_batch
 from . import _build
-from .onevar_kernel import _check_cuda
+from .onevar_kernel import SMEM_BLOCK_MAX, _check_cuda, _sm_count
 
 logger = logging.getLogger("qcqp_tpu_torch")
 
-MAX_N = 1024       # one thread per eigencoordinate
+MAX_N = 1024       # the widest form K3 takes (the JAX package's limit)
 NW_TRIPS = 6       # secular Newton trips (admm_pallas.py:74)
 _DBL_TRIPS = ((2.0, 10), (1024.0, 3))   # doublings, then the x1024 jumps
 _NAN = float("nan")
@@ -72,8 +77,7 @@ class ADMMFusedData:
     Computed on the host in numpy float64 with the same calls as the JAX
     package's ADMMFusedData (admm_pallas.py:458-506), then cast to float32
     on the form's device, so both packages' tensors are equal on the real
-    rows.  QT holds each Q_i transposed, so that the kernel reads both
-    products with Q coalesced."""
+    rows."""
 
     def __init__(self, form: QCQPForm, rho=None):
         n, m = form.n, form.m
@@ -100,7 +104,6 @@ class ADMMFusedData:
         self.need_dbl = bool(np.any(lam.max(axis=1) <= 0.0)
                              or np.any(lam.min(axis=1) >= 0.0))
         self.Q = f32(Q)                                  # (m, n, n)
-        self.QT = f32(np.swapaxes(Q, 1, 2))
         self.lam, self.qhat = f32(lam), f32(qhat)        # (m, n)
         self.r = f32(r[1:])                              # (m,)
         self.eq = f32(eq.astype(np.float64))
@@ -127,9 +130,10 @@ def _nmin(a, b):
 
 
 def _tree_sum(v):
-    """Sum over the last axis as the kernel's block reduction does: lanes
-    zero-padded to a multiple of 32, a shuffle-down tree (16, 8, 4, 2, 1)
-    inside each warp, then the warp sums added in order."""
+    """Sum over the last axis as the kernel's warp reduction does:
+    coordinates zero-padded to a multiple of 32, a shuffle-down tree (16, 8,
+    4, 2, 1) inside each chunk of 32, then the chunk sums added in
+    order."""
     n = v.shape[-1]
     n_pad = -(-n // 32) * 32
     v = F.pad(v, (0, n_pad - n)).reshape(v.shape[:-1] + (n_pad // 32, 32))
@@ -172,8 +176,8 @@ def _fvals(d, pts):
 
 def _consensus(d, xh, uh):
     """sum_i (xh_i - uh_i) Q_i^T -> (R, n), the per-i products summed over
-    i in order."""
-    part = _rowvec(xh - uh, d.QT)                        # (R, m, n)
+    i in order (Q_i^T as a view: the kernel reads Q_i by columns)."""
+    part = _rowvec(xh - uh, d.Q.transpose(-1, -2))       # (R, m, n)
     acc = torch.zeros_like(part[:, 0])
     for i in range(part.shape[1]):
         acc = acc + part[:, i]
@@ -309,29 +313,69 @@ admm_phase_ref.lane_iters = {1: 0, 2: 0}
 # The kernel's wrapper.
 # ---------------------------------------------------------------------------
 
-def _launch(d, xs, phase, num_iters, tol, viol_lim, better_tol, nw):
+# K3's launch geometry (csrc/admm_impl.cuh): one warp per restart, up to
+# MAX_WARPS a block, every slab staged once per block in shared memory.
+MAX_WARPS = 16          # restarts a block (kMaxWarps in the source)
+WHOLE_MAX_N = 160       # the whole Q_i a slab, 5 coordinates a lane at most
+CHUNK_ROWS = 16         # rows (or columns) of Q_i a slab above WHOLE_MAX_N
+
+
+def launch_geometry(n, m, R=None, sms=None):
+    """(warps a block, chunk rows, shared bytes a block) for K3 at n
+    eigencoordinates and m constraints.  Chunk rows 0 means the whole Q_i
+    is one slab (n <= WHOLE_MAX_N, a lane's C = ceil(n / 32) coordinates in
+    registers); else Q_i is streamed CHUNK_ROWS rows, then columns, at a
+    time, and a lane's vectors live in shared memory.  A block holds two
+    slabs of rows x S floats (S: n rounded up to 4, then to 4 mod 8), 32
+    floats past them and a slice a warp of 4 (whole) or 5 vectors of 32 C
+    floats.  Up to MAX_WARPS warps within SMEM_BLOCK_MAX; given R and the
+    card's SM count, at most R / sms rounded up, so that a small batch
+    spreads over the SMs.  m sets no shared memory (uh lives in a global
+    scratch); K3 needs m >= 1."""
+    if not 0 < n <= MAX_N or m < 1:
+        raise ValueError(f"K3 takes 0 < n <= {MAX_N} and m >= 1, got "
+                         f"n = {n}, m = {m}")
+    whole = n <= WHOLE_MAX_N
+    rows = n if whole else CHUNK_ROWS
+    S = -(-n // 4) * 4
+    slab = rows * (S if S // 4 % 2 else S + 4)
+    warp = (4 if whole else 5) * 32 * -(-n // 32)
+    fixed = 4 * (2 * slab + 32)
+    warps = min(MAX_WARPS, (SMEM_BLOCK_MAX - fixed) // (4 * warp))
+    if R is not None and sms:
+        warps = max(1, min(warps, -(-R // sms)))
+    return warps, 0 if whole else CHUNK_ROWS, fixed + 4 * warps * warp
+
+
+def _launch(d, xs, phase, num_iters, tol, viol_lim, better_tol, nw,
+            geometry=None):
+    """One launch of K3.  geometry: (warps, chunk rows, _) in place of
+    launch_geometry's, as the checks that force a full block or the
+    chunked storage pass it; the C entry refuses one that does not fit."""
     m, n = d.m, d.n
     R = xs.shape[0]
     _check_cuda("admm_phase",
-                [d.Q, d.QT, d.lam, d.qhat, d.r, d.eq, d.lmax, d.lmin, d.W,
-                 d.P0, d.q0, xs],
-                [(m, n, n), (m, n, n), (m, n), (m, n), (m,), (m,), (m,),
-                 (m,), (n, n), (n, n), (n,), (R, n)])
+                [d.Q, d.lam, d.qhat, d.r, d.eq, d.lmax, d.lmin, d.W, d.P0,
+                 d.q0, xs],
+                [(m, n, n), (m, n), (m, n), (m,), (m,), (m,), (m,), (n, n),
+                 (n, n), (n,), (R, n)])
     if not 0 < n <= MAX_N:
         raise ValueError(f"admm_phase: K3 takes 0 < n <= {MAX_N}, got {n}")
+    warps, chunk_rows, _ = geometry or launch_geometry(
+        n, m, R, _sm_count(xs.device))
     out = torch.empty_like(xs)
-    scratch = torch.empty((2, max(R, 1), m, n), dtype=torch.float32,
-                          device=xs.device)              # xh, uh
+    uh = torch.empty((max(R, 1), m, n), dtype=torch.float32,
+                     device=xs.device)
     lib = _build.library()
     stream = torch.cuda.current_stream(xs.device).cuda_stream
     rc = lib.qk_admm_phase(
-        d.Q.data_ptr(), d.QT.data_ptr(), d.lam.data_ptr(),
-        d.qhat.data_ptr(), d.r.data_ptr(), d.eq.data_ptr(),
-        d.lmax.data_ptr(), d.lmin.data_ptr(), d.W.data_ptr(),
-        d.P0.data_ptr(), d.q0.data_ptr(), xs.data_ptr(), out.data_ptr(),
-        scratch[0].data_ptr(), scratch[1].data_ptr(), n, m, R, int(phase),
-        int(num_iters), float(tol), float(viol_lim), float(better_tol),
-        float(d.rho32), float(d.r0), int(d.need_dbl), int(nw), stream)
+        d.Q.data_ptr(), d.lam.data_ptr(), d.qhat.data_ptr(),
+        d.r.data_ptr(), d.eq.data_ptr(), d.lmax.data_ptr(),
+        d.lmin.data_ptr(), d.W.data_ptr(), d.P0.data_ptr(),
+        d.q0.data_ptr(), xs.data_ptr(), out.data_ptr(), uh.data_ptr(), n, m,
+        R, int(phase), int(num_iters), float(tol), float(viol_lim),
+        float(better_tol), float(d.rho32), float(d.r0), int(d.need_dbl),
+        int(nw), int(warps), int(chunk_rows), stream)
     _build.check(rc, "qk_admm_phase")
     return out
 

@@ -189,8 +189,7 @@ def test_setup_tensors_equal_jax(case):
     m = td.m
     Q, lam3, qhat3, r3, eq3, lmax3, lmin3, W, P0, q0, rho_arr = (
         np.asarray(t) for t in jd.tensors)
-    pairs = [(td.Q, Q[:m]), (td.QT, np.swapaxes(Q[:m], 1, 2)),
-             (td.lam, lam3[:m, 0]), (td.qhat, qhat3[:m, 0]),
+    pairs = [(td.Q, Q[:m]), (td.lam, lam3[:m, 0]), (td.qhat, qhat3[:m, 0]),
              (td.r, r3[:m, 0, 0]), (td.eq, eq3[:m, 0, 0]),
              (td.lmax, lmax3[:m, 0, 0]), (td.lmin, lmin3[:m, 0, 0]),
              (td.W, W), (td.P0, P0), (td.q0, q0[0]),

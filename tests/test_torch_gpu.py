@@ -312,6 +312,58 @@ def test_k3_kernel_equals_plain(cuda, kind):
                                                       data=d))
 
 
+def _k3_shape_form(n, m, dbl, seed):
+    """A dense random form with equality rows; with dbl, constraint 1 is
+    semidefinite, so K3's bracket doubling runs."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((m + 1, n, n)) / np.sqrt(n)
+    P = 0.5 * (A + np.swapaxes(A, -1, -2))
+    q = rng.standard_normal((m + 1, n)) / np.sqrt(n)
+    r = rng.standard_normal(m + 1)
+    is_eq = rng.random(m) < 0.5
+    if dbl:
+        B = rng.standard_normal((n, n))
+        P[1] = B @ B.T / n
+        r[1] = -abs(r[1]) - 0.5
+        is_eq[0] = False
+    return (P, q, r, is_eq), rng
+
+
+# (n, m, R, need_dbl, chunk rows): n across the 32-coordinate chunks a
+# lane owns, the whole-slab limit (160) and one past it (161: Q_i streamed
+# in chunks); R = 1, 40 and "block" (a full block of the most warps that
+# fit, 16, or 8 at n = 160, and a ragged one); need_dbl on and off; the
+# chunked storage forced at n = 37 with 8-row chunks (5 chunks, the last
+# of 5 rows).
+K3_CASES = [(1, 1, 1, True, None), (33, 4, "block", False, None),
+            (65, 2, 40, True, None), (160, 2, "block", False, None),
+            (161, 2, 5, True, None), (37, 3, "block", True, 8),
+            (37, 3, 40, False, 8)]
+
+
+@pytest.mark.parametrize("n,m,R,dbl,rows", K3_CASES)
+def test_k3_shapes_equal_plain(cuda, n, m, R, dbl, rows):
+    from qcqp_tpu_torch.convert import form_from_numpy
+    from qcqp_tpu_torch.kernels import admm_kernel as tk
+    arrays, rng = _k3_shape_form(n, m, dbl, n + m)
+    form = form_from_numpy(*arrays, device=cuda, dtype=torch.float32)
+    d = tk.ADMMFusedData(form)
+    assert d.need_dbl == dbl
+    geometry = None
+    if R == "block" or rows:       # the largest block that fits, or chunks
+        warps, r_, _ = tk.launch_geometry(n, m)
+        R = warps + 1 if R == "block" else R
+        geometry = (warps, rows or r_, None)
+    xs = torch.from_numpy((0.5 * rng.standard_normal((R, n)))
+                          .astype(np.float32)).to(cuda)
+    for phase in (1, 2):
+        out = tk._launch(d, xs, phase, 15, 1e-2, 1e4, 1e-4, tk.NW_TRIPS,
+                         geometry=geometry)
+        torch.cuda.synchronize()
+        assert torch.equal(out, tk.admm_phase_ref(d, xs, phase,
+                                                  num_iters=15)), phase
+
+
 def test_k3_refuses_what_it_does_not_take(cuda):
     from qcqp_tpu_torch.convert import form_from_numpy
     from qcqp_tpu_torch.kernels import admm_kernel as tk
