@@ -117,16 +117,25 @@ launch no kernel, go first (`plain_runs`: the plain versions that phases
                launch, violation < 1e-2, objective at most 39.92, the
                plain version's on the CPU; the brute-force optimum is
                35.551).
- 13. k5        K5 (csrc/eigh_jacobi.cu) against its plain version on the
-               card, eigenvalues and eigenvectors bit for bit: B = 16 at
-               n0 = 24, B = 132 at n0 = 101, a ragged B = 5 at n0 = 16 and
-               B = 2 at n0 = 200 (the global-memory code), at 8 and 2
-               sweeps, and round counts that are no multiple of n - 1; at
-               8 sweeps both wrappers against LAPACK (1e-4 of the scale,
-               tests/test_eigh_pallas.py:31-37) and eigh_jacobi against
-               its matmul plain version; ptxas' registers and spills; the
-               times of K5, its plain version and torch.linalg.eigh at
-               B = 1 and 132, n0 = 101, 2 sweeps;
+ 13. k5        K5 (csrc/eigh_jacobi.cu: only the real n0 x n0 block,
+               through a host-built schedule of real pairs) against its
+               plain version on the card, eigenvalues and eigenvectors bit
+               for bit: B = 16 at n0 = 24, B = 132 at n0 = 101, a ragged
+               B = 5 at n0 = 16 and B = 2 at n0 = 200 (the global-memory
+               code), at 8 and 2 sweeps, and round counts that are no
+               multiple of n - 1; the storages' edges at one sweep (n0 =
+               1, 25, 32, 33, 64, 65, 128, 129, 169, 170; B = 132, 301 and
+               1,001 at n0 = 25, one warp a matrix, several a block, a
+               ragged last block) and the S = 16 bank's B = 16, n0 = 25 at
+               2; at 8 sweeps both wrappers against LAPACK (1e-4 of
+               the scale, tests/test_eigh_pallas.py:31-37) and eigh_jacobi
+               against its matmul plain version; ptxas' registers and
+               spills of every instantiation; the times of K5, its plain
+               version and torch.linalg.eigh at B = 1 and 132, n0 = 101,
+               and B = 16, n0 = 25, 2 sweeps; the NaN that K5 and its
+               plain version return for a matrix with one infinite entry
+               (a stated deviation: fewer in K5's until both are NaN
+               everywhere);
  14. sdr_path  the n = 100 boolean-least-squares SDR (bench.py:287-305):
                the default float32 route (Newton-Schulz) through
                solve_sdr(device="device"), which must pass the acceptance
@@ -1501,10 +1510,23 @@ def phase_ccp_golden():
 
 # (B, n0, sweeps, rounds): the banks' shapes at the wrapper's default 8
 # sweeps and the vec route's 2, a ragged batch, the global-memory code
-# (n0 = 200 pads to 256), and round counts that are no multiple of n - 1
+# (n0 = 200 pads to 256), and round counts that are no multiple of n - 1;
+# then the storages' edges (eigh_kernel.launch_geometry): one warp a matrix
+# up to n0 = 32 (n0 = 1 has no real pair; B = 132 at n0 = 25 one an SM,
+# 301 and 1,001 several a block with a ragged last block), one block a
+# matrix from 33 (2 to 6 column chunks a lane: 32/33, 64/65, 128/129),
+# shared memory up to 169 and a global scratch from 170
 K5_CASES = [(16, 24, 8, None), (16, 24, 2, None), (132, 101, 8, None),
             (132, 101, 2, None), (5, 16, 8, None), (2, 200, 8, None),
-            (2, 200, 2, None), (3, 24, 2, 57), (2, 200, 1, 300)]
+            (2, 200, 2, None), (3, 24, 2, 57), (2, 200, 1, 300),
+            (4, 1, 1, None), (16, 25, 2, None), (132, 25, 1, None),
+            (301, 25, 1, None), (1001, 25, 1, None), (7, 32, 1, None),
+            (7, 33, 1, None), (3, 64, 1, None), (3, 65, 1, None),
+            (3, 128, 1, None), (3, 129, 1, None), (2, 169, 1, None),
+            (2, 170, 1, 100)]
+# (B, n0) timed at 2 sweeps: the S = 132 bank's (and one matrix of it), and
+# the S = 16 bank's (n = ns + 1 = 25)
+K5_TIMED = ((1, 101), (132, 101), (16, 25))
 SDR_N = 100                        # bench.py:287-305
 SDR_BANK_ITERS = 2000              # the vec banks' fixed budget
 LOCKSTEP_ITERS = 20
@@ -1543,6 +1565,7 @@ def phase_k5():
     LAPACK-level accuracy; the K5b wrapper against its matmul plain
     version; times against torch.linalg.eigh."""
     import torch
+    from qcqp_tpu_torch.kernels import eigh_kernel
     from qcqp_tpu_torch.kernels.eigh_kernel import (
         eigh_jacobi, eigh_jacobi_ref, eigh_jacobi_vec, eigh_jacobi_vec_ref)
     rng = np.random.default_rng(12)
@@ -1591,23 +1614,72 @@ def phase_k5():
                 raise AssertionError(f"eigh_jacobi at {key} is off its "
                                      "plain version")
         res[key] = out
-    times = {}
-    for B in (1, 132):
-        A = _sym_batch(rng, B, 101)
-        times[f"B={B}"] = {
-            "ms": cuda_ms(lambda: eigh_jacobi_vec(A, sweeps=2), 20),
-            "plain_ms": cuda_ms(lambda: eigh_jacobi_vec_ref(A, sweeps=2), 1),
-            "library_ms": cuda_ms(lambda: torch.linalg.eigh(A),
-                                  20 if B == 1 else 3),
-            **k5_bound(B, 101, 2 * 127)}
+    times = k5_times(eigh_kernel, rng)
+    nonfinite = k5_nonfinite(eigh_jacobi_vec, eigh_jacobi_vec_ref)
     x = 1.0 + 3.0 * torch.rand(1 << 20, device="cuda")
-    emit({"phase": "k5", "cases": res, "times_N101_2sweeps": times,
-          "ptxas": _ptxas("eigh_kernel"),
+    emit({"phase": "k5", "cases": res, "times_2sweeps": times,
+          "nonfinite": nonfinite, "ptxas": _ptxas("eigh_kernel"),
           # why the kernel and its plain version take 1 / sqrt for the
           # JAX code's lax.rsqrt: torch.rsqrt rounds differently
           "rsqrt_ne_one_over_sqrt_of_2e20": int(
               (torch.rsqrt(x) != 1.0 / torch.sqrt(x)).sum())})
     return {"max_abs_err": worst, "times": times}
+
+
+def k5_times(eigh_kernel, rng):
+    """K5's time at K5_TIMED, 2 sweeps, by CUDA events around 20 calls
+    queued behind a sleep kernel, so that the host's enqueue leaves the
+    card no gap, after a warm-up one (which also makes the device
+    schedule): `ms` one launch (`_launch`, without the wrapper's sort),
+    `wrapper_ms` one eigh_jacobi_vec call (the launch and the sort, the
+    scope of `plain_ms` and `library_ms`); with its bound, and the plain
+    version's and torch.linalg.eigh's time."""
+    import torch
+    times = {}
+    for B, n0 in K5_TIMED:
+        A = _sym_batch(rng, B, n0)
+        rounds = 2 * (eigh_kernel._padded(n0) - 1)
+
+        def launch():
+            return eigh_kernel._launch("eigh_jacobi_vec", A, n0, rounds)
+        launch()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(50_000_000)          # about 25 ms at 1.98 GHz
+        out = {"ms": cuda_ms(launch, 20)}
+        torch.cuda._sleep(50_000_000)
+        out["wrapper_ms"] = cuda_ms(
+            lambda: eigh_kernel.eigh_jacobi_vec(A, sweeps=2), 20)
+        out["plain_ms"] = cuda_ms(
+            lambda: eigh_kernel.eigh_jacobi_vec_ref(A, sweeps=2), 1)
+        out["library_ms"] = cuda_ms(lambda: torch.linalg.eigh(A),
+                                    20 if B == 1 else 3)
+        out.update(k5_bound(B, n0, rounds))
+        times[f"B={B},n0={n0}"] = out
+    return times
+
+
+def k5_nonfinite(eigh_vec, eigh_vec_ref):
+    """The stated deviation on a non-finite input: one infinite entry (and
+    its mirror).  The plain version's identity rotations on padded rows
+    make 0 * inf = NaN there, which flows back into the real entries; the
+    kernel leaves the padded rows out, so its NaN are fewer until both are
+    NaN everywhere (by 2 sweeps at these shapes).  Records the NaN counts
+    of both; fails if the kernel shows no NaN where the plain version
+    does."""
+    import torch
+    rng = np.random.default_rng(3)
+    out = {}
+    for n0, rounds in ((25, 200), (25, 254), (101, 200), (101, 254)):
+        A = _sym_batch(rng, 1, n0)
+        A[0, 3, 5] = A[0, 5, 3] = float("inf")
+        got = [int(t.isnan().sum()) for t in eigh_vec(A, _rounds=rounds)]
+        want = [int(t.isnan().sum()) for t in eigh_vec_ref(A, _rounds=rounds)]
+        if any(w and not g for g, w in zip(got, want)):
+            raise AssertionError(f"K5 on a non-finite input at n0 = {n0}: "
+                                 f"NaN {got}, its plain version's {want}")
+        out[f"n0={n0},rounds={rounds}"] = {"kernel_nan_lam_V": got,
+                                           "plain_nan_lam_V": want}
+    return out
 
 
 def bls_sdr_arrays(n=SDR_N, seed=2):
@@ -2164,14 +2236,19 @@ def main():
         {"name": "K5 eigh_jacobi_vec / eigh_jacobi", "route": "cuda",
          "source": "qcqp_tpu_torch/csrc/eigh_jacobi.cu",
          "replaces": "qcqp_tpu/kernels/eigh_pallas.py:272 and :377",
+         "design": "redesigned: only the real n0 x n0 block, through a "
+                   "host-built schedule of real pairs; warps own pairs, "
+                   "lanes own columns, 2 syncs a round; one warp a matrix "
+                   "at n0 <= 32",
          "launches": sdr["launches"], "max_abs_err": k5["max_abs_err"],
-         **{k: k5["times"]["B=132"][k]
+         **{k: k5["times"]["B=132,n0=101"][k]
             for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                       "library_ms")},
          "shape": "B=132, N=101 (padded to 128), 2 sweeps: the S = 132 "
                   "vec bank's",
-         "B=1": {k: k5["times"]["B=1"][k]
-                 for k in ("ms", "plain_ms", "bound_ms", "library_ms")}},
+         **{key: {k: k5["times"][key][k]
+                  for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+            for key in ("B=1,n0=101", "B=16,n0=25")}},
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -49,7 +49,7 @@ _SIGNATURES = {
                      _I, _I, _I, _I, _P],
     "qk_admm_phase": [_P] * 13 + [_I] * 5 + [_F] * 5 + [_I] * 4 + [_P],
     "qk_ccp_improve": [_P] * 17 + [_I] * 8 + [_F] * 8 + [_P],
-    "qk_eigh_jacobi": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "qk_eigh_jacobi": [_P] * 6 + [_I] * 7 + [_P],
 }
 
 

@@ -37,6 +37,14 @@ same function and differ in rounding only, so one CUDA kernel serves both:
                        body).  Its matmuls round differently from the
                        kernel's elementwise rotations, so the kernel agrees
                        with it to LAPACK-level tolerance, not bit for bit.
+
+The kernel works only on the real n0 x n0 block: a pair with a padded slot
+is an identity rotation, so it runs the tournament's real pairs from
+`real_pair_schedule` (built once on the host per (n0, rounds) and cached
+on the device) and reads the final slot -> physical map at the write-out.
+That gives the plain version's values for finite inputs; a non-finite
+input spreads NaN through the padded rows in the plain version (0 * inf)
+and into fewer entries in the kernel.
 """
 
 from __future__ import annotations
@@ -47,7 +55,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .onevar_kernel import _check_cuda
+from .onevar_kernel import _check_cuda, _sm_count
 
 LANE = 128
 
@@ -219,25 +227,111 @@ def eigh_jacobi_ref(A, sweeps: int = 8):
     return _sorted(batch_shape, lam[:, :n0], V[:, :n0, :n0])
 
 
+# K5's storages; csrc/eigh_jacobi.cu takes the one launch_geometry picks
+WARP_MAX_N0 = 32          # one warp owns a matrix, several a block
+SHARED_MAX_N0 = 169       # one block a matrix, A and V in shared memory
+MAX_N0 = 8192             # above SHARED_MAX_N0: a global scratch
+MAX_WARPS = 32
+SMEM_BLOCK_MAX = 232448   # 227 KB, the H100's largest block
+
+
+def _ld(n0: int) -> int:
+    """K5's row stride: n0 rounded up to odd, so that a warp's strided
+    column accesses fall on 32 banks."""
+    return n0 | 1
+
+
+@functools.lru_cache(maxsize=32)
+def real_pair_schedule(n0: int, rounds: int):
+    """The rounds of the n-slot tournament (n = _padded(n0)) as K5 runs
+    them, built on the host: (sched, perm, maxp).
+
+    Round r pairs slots (2k, 2k+1), which hold the physical rows and
+    columns p_r[2k], p_r[2k+1] of the data-moving version's A (p_0 the
+    identity, p_{r+1}[j] = p_r[sigma[j]]).  A pair with a physical index
+    >= n0 is an identity rotation and is left out; so is a round with no
+    real pair.  sched is (rounds with a real pair, maxp) int32, a round's
+    real pairs in slot order packed as P | Q << 16 (P the even slot's),
+    -1 past them; maxp the most real pairs of a round; perm (n0,) int32
+    the physical index of slots 0..n0-1 after all `rounds` rounds (>= n0
+    for a padded one)."""
+    if n0 < 1 or rounds < 0:
+        raise ValueError(f"eigh: n0 = {n0} and rounds = {rounds}")
+    n = _padded(n0)
+    sigma = tournament_permutation(n)
+    p = np.arange(n)
+    rows = []
+    for _ in range(rounds):
+        P, Q = p[0::2], p[1::2]
+        real = (P < n0) & (Q < n0)
+        if real.any():
+            rows.append(P[real] | (Q[real] << 16))
+        p = p[sigma]
+    maxp = max((len(r) for r in rows), default=0)
+    sched = np.full((len(rows), maxp), -1, dtype=np.int32)
+    for i, r in enumerate(rows):
+        sched[i, :len(r)] = r
+    return sched, p[:n0].astype(np.int32), maxp
+
+
+@functools.lru_cache(maxsize=32)
+def _device_schedule(n0: int, rounds: int, device):
+    """real_pair_schedule on the device, made once per (n0, rounds,
+    device): the vec SDP loop launches K5 at one shape every iteration."""
+    sched, perm, maxp = real_pair_schedule(n0, rounds)
+    return (torch.from_numpy(sched).to(device),
+            torch.from_numpy(perm).to(device), maxp)
+
+
+def launch_geometry(n0: int, B: int, sms: int = None):
+    """(blocks, matrices a block, warps a matrix, shared bytes a block)
+    for K5 on B matrices of n0 x n0 (csrc/eigh_jacobi.cu).
+
+    n0 <= WARP_MAX_N0: one warp a matrix; a block holds as many as its
+    227 KB (2 n0 _ld(n0) floats each) and MAX_WARPS allow and, given the
+    card's SM count, no more than B / sms rounded up, so that a small
+    batch spreads over the SMs.  Above: one block a matrix, with as few
+    warps as hold the largest round's pairs (n0 // 2, round 0's) at the
+    fewest pairs a warp (at most 32 a warp: a lane holds one pair's
+    parameters); A and V in shared memory up to SHARED_MAX_N0, above in a
+    global scratch (0 shared bytes)."""
+    if not 0 < n0 <= MAX_N0 or B < 0:
+        raise ValueError(f"K5 takes 0 < n0 <= {MAX_N0} and B >= 0, got "
+                         f"n0 = {n0}, B = {B}")
+    mat = 4 * 2 * n0 * _ld(n0)
+    if n0 <= WARP_MAX_N0:
+        mats = min(MAX_WARPS, SMEM_BLOCK_MAX // mat)
+        if sms:
+            mats = max(1, min(mats, -(-B // sms)))
+        return -(-B // mats), mats, 1, mats * mat
+    maxp = n0 // 2
+    per_warp = -(-maxp // MAX_WARPS)
+    warps = -(-maxp // per_warp)
+    return B, 1, warps, mat if n0 <= SHARED_MAX_N0 else 0
+
+
 def _launch(name, Af, n0, rounds):
     """One launch of csrc/eigh_jacobi.cu on (B, n0, n0): unsorted lam
-    (B, n0) by slot and V (B, n0, n0).  n = 128 keeps A and V in shared
-    memory; a wider padding runs the same code on a global scratch."""
+    (B, n0) by slot and V (B, n0, n0).  The schedule comes from the
+    device cache; above SHARED_MAX_N0 A and V live in a global scratch."""
     B = Af.shape[0]
     _check_cuda(name, [Af], [(B, n0, n0)])
-    n = _padded(n0)
     if rounds < 0:
         raise ValueError(f"{name}: rounds must be >= 0, got {rounds}")
+    _, mats, warps, smem = launch_geometry(n0, B, _sm_count(Af.device))
+    sched, perm, maxp = _device_schedule(n0, int(rounds), Af.device)
     lam = torch.empty((B, n0), dtype=torch.float32, device=Af.device)
     V = torch.empty((B, n0, n0), dtype=torch.float32, device=Af.device)
-    scratch = (None if n == LANE else
-               torch.empty((B, 2, n, n + 1), dtype=torch.float32,
+    scratch = (None if n0 <= SHARED_MAX_N0 else
+               torch.empty((B, 2, n0, _ld(n0)), dtype=torch.float32,
                            device=Af.device))
     lib = _build.library()
     stream = torch.cuda.current_stream(Af.device).cuda_stream
     rc = lib.qk_eigh_jacobi(Af.data_ptr(), lam.data_ptr(), V.data_ptr(),
                             None if scratch is None else scratch.data_ptr(),
-                            B, n0, n, int(rounds), stream)
+                            sched.data_ptr(), perm.data_ptr(), B, n0,
+                            sched.shape[0], maxp, mats, warps, smem,
+                            stream)
     _build.check(rc, "qk_eigh_jacobi")
     return lam, V
 
@@ -248,7 +342,7 @@ def eigh_jacobi_vec(A, sweeps: int = 8, block: int = 16,
 
     A: (..., n0, n0) symmetric.  Returns (lam ascending, V), float32.  CPU
     tensors run `eigh_jacobi_vec_ref`; CUDA tensors launch K5 once for the
-    whole batch (one block per matrix; `block` changes nothing).  _rounds
+    whole batch (`launch_geometry`; `block` changes nothing).  _rounds
     overrides sweeps * (n - 1), as in the JAX wrapper."""
     if not A.is_cuda:
         return eigh_jacobi_vec_ref(A, sweeps, block, _rounds)

@@ -471,7 +471,15 @@ def test_k4_golden_through_handler(cuda):
 
 @pytest.mark.parametrize("B,n0,sweeps,rounds", [
     (16, 24, 2, None), (3, 24, 2, 57),
-    (2, 200, 1, None)])                 # n = 256: the global-memory code
+    (2, 200, 1, None),                  # n = 256: the global-memory code
+    # the storages' edges (eigh_kernel.launch_geometry): one warp a matrix
+    # up to n0 = 32, several a block (a ragged last one at B = 301); one
+    # block a matrix from 33, 2 to 6 column chunks a lane; shared memory
+    # up to 169
+    (4, 1, 2, None), (132, 25, 2, None), (301, 25, 2, None),
+    (7, 32, 2, None), (7, 33, 2, None), (3, 64, 1, None), (3, 65, 1, None),
+    (3, 128, 1, None), (3, 129, 1, None), (2, 169, 1, None),
+    (2, 170, 1, 100)])
 def test_k5_kernel_equals_plain(cuda, B, n0, sweeps, rounds):
     from qcqp_tpu_torch.kernels import eigh_kernel as tk
     A = np.random.default_rng(B + n0).standard_normal((B, n0, n0))
@@ -483,6 +491,18 @@ def test_k5_kernel_equals_plain(cuda, B, n0, sweeps, rounds):
     lam_p, V_p = tk.eigh_jacobi_vec_ref(A, sweeps=sweeps, _rounds=rounds)
     torch.cuda.synchronize()
     assert torch.equal(lam, lam_p) and torch.equal(V, V_p)
+
+
+def test_k5_schedule_is_made_once_per_shape(cuda):
+    """The vec SDP loop launches K5 at one shape every iteration: the
+    real-pair schedule is built and copied to the card once."""
+    from qcqp_tpu_torch.kernels import eigh_kernel as tk
+    A = torch.eye(25, device=cuda).expand(2, 25, 25).contiguous()
+    tk.eigh_jacobi_vec(A, sweeps=2)
+    misses = tk._device_schedule.cache_info().misses
+    lam, V = tk.eigh_jacobi_vec(A, sweeps=2)
+    assert tk._device_schedule.cache_info().misses == misses
+    assert torch.equal(lam, torch.ones(2, 25, device=cuda))
 
 
 def test_k5b_wrapper_launches_k5(cuda):
