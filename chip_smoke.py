@@ -155,6 +155,26 @@ launch no kernel, go first (`plain_runs`: the plain versions that phases
                through K1 to 35.550; one solve_sdr_batch(psd_method="vec")
                with its float64 fallback on the S = 16 bank, whose counter
                must rise once per instance the gate rejects.
+ 16. spectral  QCQP(prob).suggest(SPECTRAL) on boolean least squares
+               (phase 4's problem) in float32 on the card: the route
+               (first attempt, ns_steps=20 retry or float64 re-solve),
+               each splitting loop's iterations and residuals, ms and
+               bound, which must be finite, at most phase 15's SDR bound
+               and within 2e-2 of the JAX package's float64 bound (a
+               literal); then solve_restarts(256, suggest=SPECTRAL,
+               improve=COORD_DESCENT) from the handler's point, one K1
+               launch (its count set to 0 before, read after);
+ 17. nlp_path  improve_nlp (the IPOPT improve) on the bench form in
+               float32, RANDOM starts, at R = 128 and 10,240: a short
+               warm-up and 3 timed improves, ms, restarts/s, best (f, v),
+               the share of lanes at violation < 1e-3, the lanes whose
+               violation overflowed, Newton trips and host reads a
+               solve; in turns, the Armijo loop with a host read a trip
+               in place of the masked one, equal bit for bit; 16 starts
+               in float64 on the card against the CPU, lane by lane, at a
+               short schedule where the CPU's lanes are determined; the
+               handler's improve(IPOPT) on boolean least squares at
+               violation < 1e-4.
 
 Then the seconds each phase took, the card's line from nvidia-smi, the
 kernels' JSON line (time, plain time, bound and launches of each kernel),
@@ -167,8 +187,9 @@ K2 at R = 10,240, with K2's share of the device time; phase 6's n = 256
 route likewise, and its phase 1 alone beside the whole improve; ADMM
 through K3 at R = 1,024 and 10,240; DCCP through K4 at R = 128 and
 10,240; the n = 100 SDR's Newton-Schulz and vec routes, 200 iterations
-each): kernel time by kernel name, against the unprofiled solve's wall
-time; then K1's time at R = 256 ... 40,960 restarts.
+each; the NLP improve at R = 128 and 10,240): kernel time by kernel
+name, against the unprofiled solve's wall time; then K1's time at
+R = 256 ... 40,960 restarts.
 """
 
 import json
@@ -1943,6 +1964,230 @@ def phase_sdr_golden(bank16, acc16):
     emit({"phase": "sdr_golden", **out})
     if counted != Count.n or counted != int((~acc16).sum()):
         raise AssertionError(f"batch fallback: {out['batch_fallback']}")
+    return h.sdr_bound
+
+
+# the JAX package's float64 spectral bound of the boolean-LS problem
+# (examples/boolean_least_squares.py): qcqp_tpu.QCQP(prob).suggest(SPECTRAL)
+# on the CPU; the float32 bound on the card is held to it at the SDR
+# goldens' tolerance
+SPECTRAL_BLS_BOUND, SPECTRAL_TOL = 13.736533233436749, 2e-2
+R_SPECTRAL = 256
+
+
+def phase_spectral(sdr_bound):
+    """QCQP(prob).suggest(SPECTRAL) on the boolean-LS problem, on the card
+    in float32: the route, iterations, time and bound, the bound against
+    the SDR bound and the JAX package's float64 bound; then SPECTRAL
+    starts through solve_restarts and K1, with K1's count set to 0 before
+    and read after."""
+    import torch
+    import qcqp_tpu_torch as qt
+    from qcqp_tpu_torch.kernels.cd_sweep_kernel import two_phase_sweeps
+    from qcqp_tpu_torch.solvers import sdp
+    A, b = boolean_ls_data()
+    x = qt.Variable(A.shape[1])
+    h = qt.QCQP(qt.Problem(qt.Minimize(qt.sum_squares(A @ x - b)),
+                           [qt.square(x) == 1]))
+    if h.device.type != "cuda" or h.qcqp_form.dtype != torch.float32:
+        raise AssertionError("the handler did not default to CUDA float32")
+    # each splitting loop the suggest runs (first attempt, retry, float64)
+    solves, solve_sdp = [], sdp.solve_sdp
+
+    def spy(*a, **kw):
+        sol = solve_sdp(*a, **kw)
+        solves.append({"dtype": str(sol.X.dtype).replace("torch.", ""),
+                       "iterations": int(sol.iterations),
+                       "rp": float(sol.primal_res),
+                       "rd": float(sol.dual_res)})
+        return sol
+    # solve_sdp counts its masked tail on its module name: the spy
+    # carries the count and hands it back
+    spy.masked_tail = solve_sdp.masked_tail
+    sdp._solve_single.route = None
+    sdp.solve_sdp = spy
+    try:
+        ms, (f, v) = host_ms(lambda: h.suggest(qt.SPECTRAL))
+    finally:
+        sdp.solve_sdp = solve_sdp
+        solve_sdp.masked_tail = spy.masked_tail
+    bound = h.spectral_bound
+    out = {"route": sdp._solve_single.route, "solves": solves, "ms": ms,
+           "bound": bound, "sdr_bound": sdr_bound,
+           "jax_f64_bound": SPECTRAL_BLS_BOUND,
+           "bound_minus_jax": bound - SPECTRAL_BLS_BOUND, "tol": SPECTRAL_TOL,
+           "point_objective": f, "point_violation": v}
+    xs = h.spectral_sol
+    if not (bool(torch.isfinite(xs).all()) and xs.is_cuda
+            and np.isfinite(bound) and bound <= sdr_bound
+            and abs(bound - SPECTRAL_BLS_BOUND) <= SPECTRAL_TOL):
+        raise AssertionError(f"SPECTRAL suggest: {out}")
+
+    # the SPECTRAL -> CD path: the handler's point in every restart
+    two_phase_sweeps.launches = 0
+    ms, (xb, fb, vb) = host_ms(lambda: qt.solve_restarts(
+        h.qcqp_form, R_SPECTRAL, suggest=qt.SPECTRAL,
+        improve=qt.COORD_DESCENT, handler=h, num_iters=50))
+    launches = two_phase_sweeps.launches
+    out["solve_restarts_cd"] = {"R": R_SPECTRAL, "ms": ms,
+                                "best_f": float(fb), "best_viol": float(vb),
+                                "k1_launches": launches}
+    emit({"phase": "spectral", **out})
+    if launches != 1 or not (torch.isfinite(xb).all() and float(vb) < 1e-2):
+        raise AssertionError(f"SPECTRAL -> CD: {out['solve_restarts_cd']}")
+    return {"k1_launches": launches}
+
+
+R_NLP = (128, 10240)                  # bench.py:242 (BENCH_CCP_R); 10^4
+NLP_REPEATS = 3
+# the schedule of the card-against-CPU lane check: the default schedule's
+# trajectories on the bench form amplify a few-ulp change of the start
+# into an order-1 change of (f, v) on every lane, so the lanes are held
+# where they are still determined: one BB sweep of 20 steps and one outer
+# trip of 3 Newton trips
+NLP_LANE_KW = dict(bb_outer_n=1, bb_inner=20, num_outer=1, num_inner=3)
+
+
+def _armijo_alt(form, Pt, xi, p, val, gp, lmb, mu, act):
+    """solvers/nlp._armijo with a host read a trip, stopping once no lane
+    backtracks: the alternative timed beside it in phase nlp_path."""
+    import torch
+    from qcqp_tpu_torch.solvers.nlp import _al_value_grad
+    alpha = torch.ones_like(val)
+    v_new, _ = _al_value_grad(form, xi - p, lmb, mu, Pt, grad=False)
+    trips = torch.zeros_like(val, dtype=torch.long)
+    for _ in range(16):
+        bt = act & ~(v_new <= val - 1e-4 * alpha * gp)
+        if not bool(bt.any()):
+            break
+        alpha_n = alpha * 0.5
+        vn, _ = _al_value_grad(form, xi - alpha_n[:, None] * p, lmb, mu, Pt,
+                               grad=False)
+        alpha = torch.where(bt, alpha_n, alpha)
+        v_new = torch.where(bt, vn, v_new)
+        trips = trips + bt.long()
+    return alpha, v_new, trips
+
+
+def phase_nlp_path(arrays):
+    """improve=IPOPT on the bench form in float32 on the card, RANDOM
+    starts: at R = 128 and 10,240 one warm-up and 3 timed improves (the
+    improve alone, as bench.py:266-271 times it), in turns with the
+    Armijo loop that reads the host once a trip on the first two timed
+    solves' starts (equal bit for bit); 16 starts in float64 on the card
+    against the CPU; the handler's improve(IPOPT) on boolean least
+    squares."""
+    import torch
+    import qcqp_tpu_torch as qt
+    from qcqp_tpu_torch.convert import form_from_numpy
+    from qcqp_tpu_torch.core import eval_objective_batch, max_violation_batch
+    from qcqp_tpu_torch.parallel.restarts import best_point, suggest_batch
+    from qcqp_tpu_torch.solvers import nlp
+    improve_nlp = nlp.improve_nlp
+    form = form_from_numpy(*arrays, device="cuda", dtype=torch.float32)
+
+    def starts(seed, R):
+        return suggest_batch(form, R,
+                             torch.Generator(device="cuda").manual_seed(seed))
+    out = {}
+    for R in R_NLP:
+        improve_nlp(form, starts(0, R), **NLP_LANE_KW)  # warm-up
+        times, reads, trips, alt_ms = [], [], [], []
+        for seed in range(1, 1 + NLP_REPEATS):
+            xs = starts(seed, R)
+            r0, t0 = improve_nlp.host_reads, improve_nlp.newton_trips
+            ms, x = host_ms(lambda: improve_nlp(form, xs))
+            times.append(ms)
+            reads.append(improve_nlp.host_reads - r0)
+            trips.append(improve_nlp.newton_trips - t0)
+            if seed == 1:
+                x_first = x
+            if seed == NLP_REPEATS:
+                break
+            # the Armijo loop with host reads on the same starts, in turns
+            # with the masked one: the same lanes bit for bit
+            armijo, nlp._armijo = nlp._armijo, _armijo_alt
+            try:
+                ms, x_alt = host_ms(lambda: improve_nlp(form, xs))
+            finally:
+                nlp._armijo = armijo
+            alt_ms.append(ms)
+            if not torch.equal(x_alt, x):
+                raise AssertionError(f"NLP path, R = {R}: the two Armijo "
+                                     "loops do not give the same lanes")
+        if not (torch.isfinite(x_first).all() and x_first.shape == (R, N)):
+            raise AssertionError(f"NLP path, R = {R}: a non-finite lane")
+        v = max_violation_batch(form, x_first)
+        _, fb, vb = best_point(form, x_first)
+        ms = float(np.median(times))
+        out[f"R={R}"] = {
+            "ms_per_solve": times, "restarts_per_s": R / ms * 1e3,
+            "best_f": float(fb), "best_viol": float(vb),
+            "share_viol_below_1e-3": float((v < 1e-3).float().mean()),
+            # a float32 lane that ran off to |x| ~ 1e19 overflows x'Px
+            "lanes_viol_nonfinite": int((~torch.isfinite(v)).sum()),
+            "median_viol_finite": float(v[torch.isfinite(v)].median()),
+            "newton_trips_per_solve": trips, "host_reads_per_solve": reads,
+            "armijo_alt_ms": alt_ms}
+
+    # 16 starts in float64: the card against the CPU, lane by lane, on
+    # the lanes the CPU determines (its (f, v) moves by less than 1e-9
+    # when the starts move by a few ulps; three draws in one batch)
+    cpu = form_from_numpy(*arrays, device="cpu", dtype=torch.float64)
+    card = form_from_numpy(*arrays, device="cuda", dtype=torch.float64)
+    X0 = starts(7, 16).double().cpu()
+    Xs = torch.cat([X0] + [X0 * (1.0 + 4e-16 * torch.randn(
+        X0.shape, generator=torch.Generator().manual_seed(50 + s),
+        dtype=torch.float64)) for s in range(3)])
+    t0 = time.perf_counter()
+    xc = improve_nlp(cpu, Xs, **NLP_LANE_KW)
+    cpu_s = time.perf_counter() - t0
+    fc = eval_objective_batch(cpu, xc).numpy().reshape(4, 16)
+    vc = max_violation_batch(cpu, xc).numpy().reshape(4, 16)
+
+    def rel(a, b):
+        return np.abs(a - b) / (1.0 + np.abs(b))
+    spread = np.maximum(rel(fc[1:], fc[0]), rel(vc[1:], vc[0])).max(axis=0)
+    determined = spread < 1e-9
+    xg = improve_nlp(card, X0.cuda(), **NLP_LANE_KW)
+    fg = eval_objective_batch(card, xg).cpu().numpy()
+    vg = max_violation_batch(card, xg).cpu().numpy()
+    parted = np.maximum(rel(fg, fc[0]), rel(vg, vc[0]))
+    out["card_f64_vs_cpu_f64"] = {
+        "lanes": 16, "schedule": NLP_LANE_KW,
+        "determined": int(determined.sum()),
+        "max_rel_on_determined": float(parted[determined].max()),
+        "max_rel_all": float(parted.max()), "cpu_s_64_lanes": cpu_s}
+    if determined.sum() < 12 or not (parted[determined] < 1e-6).all():
+        raise AssertionError(f"NLP card f64 vs CPU f64: "
+                             f"{out['card_f64_vs_cpu_f64']}")
+
+    # the handler: RANDOM, then improve(IPOPT), as
+    # tests/test_api_examples.py:101-106
+    A, b = boolean_ls_data()
+    x = qt.Variable(A.shape[1])
+    h = qt.QCQP(qt.Problem(qt.Minimize(qt.sum_squares(A @ x - b)),
+                           [qt.square(x) == 1]))
+    h.suggest(qt.RANDOM)
+    x0 = x.value.copy()
+    ms, (f, v) = host_ms(lambda: h.improve(qt.IPOPT))
+    # one restart: the Armijo loop with host reads from the same start
+    x.value = x0
+    armijo, nlp._armijo = nlp._armijo, _armijo_alt
+    try:
+        alt_ms, (f_alt, v_alt) = host_ms(lambda: h.improve(qt.IPOPT))
+    finally:
+        nlp._armijo = armijo
+    out["handler_ipopt"] = {"objective": f, "violation": v, "ms": ms,
+                            "armijo_alt_ms": alt_ms}
+    if (f_alt, v_alt) != (f, v):
+        raise AssertionError("QCQP.improve(IPOPT): the two Armijo loops "
+                             "differ")
+    emit({"phase": "nlp_path", "n": N, "m": M, **out})
+    if not (np.isfinite(f) and v < 1e-4):
+        raise AssertionError(f"QCQP.improve(IPOPT): {out['handler_ipopt']}")
+    return {f"ms_R{R}": float(np.median(out[f"R={R}"]["ms_per_solve"]))
+            for R in R_NLP}
 
 
 def _device_ms_by_kernel(prof):
@@ -1997,7 +2242,8 @@ def phase_profile(arrays):
     """One profiled solve per route (CD through K1 and K2 at R = 10,240,
     the default CD route at n = 256 and its phases' split, ADMM through K3
     at R = 1,024 and 10,240, DCCP through K4, the SDR's Newton-Schulz and
-    vec routes), and K1's time over R."""
+    vec routes, the NLP improve at R = 128 and 10,240), and K1's time
+    over R."""
     import torch
     import qcqp_tpu_torch as qt
     from qcqp_tpu_torch.convert import form_from_numpy
@@ -2052,6 +2298,13 @@ def phase_profile(arrays):
             data, max_iters=200, tol=0.0, psd_method=psd, accel_mem=0,
             detect_certificates=False, **kw), route=f"sdr_{psd}", n=SDR_N,
             iters=200)
+    # the NLP improve alone (phase nlp_path), device only: about 10^5
+    # launches a solve
+    from qcqp_tpu_torch.solvers.nlp import improve_nlp
+    for R in R_NLP:
+        xs = suggest_batch(form, R, gen())
+        _profile_solve(lambda: improve_nlp(form, xs), host=False, top=10,
+                       route="nlp", R=R)
     eq_idx = form.eq_idx()
     scaling = []
     for R in (256, 1024, 4096, 10240, 20480, 40960):
@@ -2162,7 +2415,10 @@ def main():
     timed("ccp_golden", phase_ccp_golden)
     k5 = timed("k5", phase_k5)
     sdr = timed("sdr_path", phase_sdr_path)
-    timed("sdr_golden", phase_sdr_golden, sdr["bank16"], sdr["acc16"])
+    sdr_bound = timed("sdr_golden", phase_sdr_golden, sdr["bank16"],
+                      sdr["acc16"])
+    spectral = timed("spectral", phase_spectral, sdr_bound)
+    timed("nlp_path", phase_nlp_path, arrays)
     if args.profile:
         timed("profile", phase_profile, arrays)
     if "jax" in sys.modules:
@@ -2182,7 +2438,8 @@ def main():
          "bound_ms": k1_bound["bound_ms"], "bound_by": k1_bound["bound_by"],
          "library_ms": None,
          "shape": f"n={N}, m={M}, R={R_MAIN}, {SWEEPS} sweeps",
-         "ms_main_path": ms_main},
+         "ms_main_path": ms_main,
+         "launches_spectral_cd": spectral["k1_launches"]},
         {"name": "K2 phase1_coordinate_update", "route": "cuda",
          "source": "qcqp_tpu_torch/csrc/onevar_phase1.cu",
          "replaces": "qcqp_tpu/kernels/onevar_pallas.py:502",

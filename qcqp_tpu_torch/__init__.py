@@ -3,16 +3,17 @@ PyTorch, with hand-written CUDA kernels for the NVIDIA H100
 (JAX counterpart: qcqp_tpu/__init__.py).
 
 A port of the `qcqp_tpu` package, which stays the reference.  It runs the
-restart-parallel pipeline on one device: canonicalize, the RANDOM and SDR
-suggests (the SDP solver of solvers/sdp.py, with the Jacobi eigh kernel K5
-on its psd_method="vec" projection), then the improves two-phase
-coordinate descent (kernels K1 and K2 on CUDA), consensus ADMM (K3) and
-penalty CCP, the DCCP improve (K4), and the best-point reduction.  Not
-ported yet: spectral suggest, IPOPT, complex variables, scenarios and the
-multi-device mesh (ROADMAP.md Queue 1).  The package imports torch and
-never jax.  Forms land on the first CUDA device when there is one, else on
-the CPU; dtypes are explicit (float64 on the CPU, float32 on CUDA by
-default), since torch has no global x64 switch.
+restart-parallel pipeline on one device: canonicalize (complex variables
+included), the RANDOM, SDR and SPECTRAL suggests (the SDP solver of
+solvers/sdp.py, with the Jacobi eigh kernel K5 on its psd_method="vec"
+projection), then the improves two-phase coordinate descent (kernels K1
+and K2 on CUDA), consensus ADMM (K3), penalty CCP, the DCCP improve (K4),
+and the augmented-Lagrangian IPOPT improve, and the best-point reduction.
+Not ported yet: scenarios, bank IO and the multi-device mesh (ROADMAP.md
+Queue 1).  The package imports torch and never jax.  Forms land on the
+first CUDA device unless the caller names another (device="cpu"), and
+without a card naming none raises; dtypes are explicit (float64 on the
+CPU, float32 on CUDA by default), since torch has no global x64 switch.
 """
 
 from .settings import (
@@ -27,13 +28,12 @@ from .expressions import (
 )
 from .api import QCQP, enable_file_log
 from .parallel.restarts import solve_restarts
-
-
-def ComplexVariable(*args, **kwargs):
-    """Complex variables (qcqp_tpu/complexvar.py) are not ported yet."""
-    raise NotImplementedError(
-        "complexvar is not ported to qcqp_tpu_torch yet: ROADMAP.md Queue 1 "
-        "item 2 (modeling layer, complexvar)")
+from .solvers.sdp import (
+    InfeasibleRelaxationError, UnboundedRelaxationError,
+)
+from .complexvar import (
+    ComplexVariable, abs2, sum_abs2, cquad_form, real, imag, conj,
+)
 
 
 __version__ = "0.1.0"
@@ -45,5 +45,7 @@ __all__ = [
     "Variable", "Problem", "Minimize", "Maximize", "Constraint",
     "square", "sum_squares", "quad_form", "power", "quad_over_lin",
     "matrix_frac", "sum_entries", "mul_elemwise", "reshape", "canonicalize",
-    "ComplexVariable",
+    "InfeasibleRelaxationError", "UnboundedRelaxationError",
+    "ComplexVariable", "abs2", "sum_abs2", "cquad_form", "real", "imag",
+    "conj",
 ]

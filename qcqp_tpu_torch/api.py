@@ -7,16 +7,16 @@ constant, sync the flat iterate with the modeling variables, return
 (objective, max violation) pairs with the maximize sign convention
 un-negated on report.
 
-The port runs the RANDOM and SDR suggests and the COORD_DESCENT, ADMM and
-DCCP improves (single restarts through `improve`, restart batches through
-`solve`).  The SDR's solution is cached on the handler (`sdr_sol`,
-`sdr_bound`, `mu`, `_sigma_chol`), as in the JAX handler, and carried by
-save_state / load_state; on a CUDA float32 form it is solved on the card
-(solvers/sdp.py).  On such a form a single-restart ADMM goes through K3,
-with its one-time setup cached per rho on the handler, and a
-single-restart DCCP through K4, with its setup cached once, as the JAX
-handler does.  SPECTRAL suggest and the IPOPT improve raise
-NotImplementedError naming the ROADMAP item that ports them.
+The port runs every method of the JAX handler: the RANDOM, SDR and
+SPECTRAL suggests and the COORD_DESCENT, ADMM, DCCP and IPOPT improves
+(single restarts through `improve`, restart batches through `solve`).
+The relaxations' solutions are cached on the handler (`sdr_sol`,
+`sdr_bound`, `mu`, `_sigma_chol`; `spectral_sol`, `spectral_bound`), as in
+the JAX handler, and carried by save_state / load_state; on a CUDA float32
+form they are solved on the card (solvers/sdp.py).  On such a form a
+single-restart ADMM goes through K3, with its one-time setup cached per
+rho on the handler, and a single-restart DCCP through K4, with its setup
+cached once, as the JAX handler does.
 
 Randomness is a torch.Generator on the form's device, seeded by the `seed`
 argument; `improve` before any `suggest` auto-suggests RANDOM, as in the
@@ -39,7 +39,8 @@ from .parallel.restarts import _fused_default, sdr_sampler, solve_restarts
 from .solvers.admm import improve_admm, min_valid_rho
 from .solvers.ccp import improve_ccp
 from .solvers.coord_descent import improve_coord_descent
-from .solvers.sdp import solve_sdr
+from .solvers.nlp import improve_nlp
+from .solvers.sdp import solve_sdr, solve_spectral
 
 logger = logging.getLogger("qcqp_tpu_torch")
 
@@ -56,9 +57,9 @@ def enable_file_log(path: str = "qcqp.log", level=logging.INFO) -> None:
 class QCQP:
     def __init__(self, prob: Problem, seed: int = 0, dtype=None,
                  device=None, check_dcp: bool = True):
-        """device: where the form lives (default: the first CUDA device when
-        there is one, else the CPU, core.default_device, as the JAX package
-        defaults to its accelerator backend).
+        """device: where the form lives (default: the first CUDA device,
+        core.default_device, as the JAX package defaults to its accelerator
+        backend; without a card the caller must pass device="cpu").
         dtype: default float64 on the CPU, float32 on CUDA, as the JAX
         package picks by backend (qcqp_tpu/api.py:63-66)."""
         device = default_device(device)
@@ -75,6 +76,8 @@ class QCQP:
             logger.warning(
                 "Problem is already convex; specifying solve method is unnecessary."
             )
+        self.spectral_sol = None
+        self.spectral_bound = None
         self.sdr_sol = None
         self.sdr_bound = None
         self.mu = None
@@ -101,15 +104,25 @@ class QCQP:
 
     # -- suggest -----------------------------------------------------------
     def suggest(self, method: str = s.RANDOM, eps: float = 1e-8, **kwargs):
-        """RANDOM: a standard normal point.  SDR: a sample of N(mu, Sigma)
-        from the Shor relaxation's lifted solution X (solved once, cached;
-        see parallel/restarts.sdr_sampler).  kwargs go to solve_sdr."""
+        """RANDOM: a standard normal point.  SPECTRAL: the spectral
+        relaxation's point (solved once, cached).  SDR: a sample of
+        N(mu, Sigma) from the Shor relaxation's lifted solution X (solved
+        once, cached; see parallel/restarts.sdr_sampler).  kwargs go to
+        solve_spectral or solve_sdr."""
         if method not in s.suggest_methods:
             raise ValueError(f"Unknown suggest method: {method}")
         if method == s.RANDOM:
             x = torch.randn((self.n,), generator=self.generator,
                             dtype=self.qcqp_form.dtype, device=self.device)
-        elif method == s.SDR:
+        elif method == s.SPECTRAL:
+            if self.spectral_sol is None:
+                xs, bound = solve_spectral(self.qcqp_form, **kwargs)
+                self.spectral_sol = xs
+                self.spectral_bound = float(bound)
+                if self.maximize_flag:
+                    self.spectral_bound *= -1
+            x = self.spectral_sol
+        else:                                   # SDR
             if self.sdr_sol is None:
                 X, bound = solve_sdr(self.qcqp_form, **kwargs)
                 self.sdr_sol = X
@@ -120,8 +133,6 @@ class QCQP:
             xi = torch.randn((self.n,), generator=self.generator,
                              dtype=self.mu.dtype, device=self.device)
             x = self.mu + self._sigma_chol @ xi
-        else:
-            raise s.not_ported(method)
         return self._report(x)
 
     # -- improve -----------------------------------------------------------
@@ -138,7 +149,11 @@ class QCQP:
             return self._improve_admm(x0, **kwargs)
         if method == s.DCCP:
             return self._improve_ccp(x0, **kwargs)
-        raise s.not_ported(method)
+        if method == s.IPOPT:
+            return improve_nlp(self.qcqp_form, x0[None], **{
+                k: v for k, v in kwargs.items()
+                if k in ("num_outer", "num_inner", "mu0")})[0]
+        raise ValueError(f"Unknown improve method: {method}")
 
     def _improve_ccp(self, x0: torch.Tensor, **kwargs):
         form = self.qcqp_form
@@ -211,17 +226,20 @@ class QCQP:
 
     # -- checkpoint / resume -----------------------------------------------
     def save_state(self, path: str) -> None:
-        """Persist the generator state, the SDR cache and the variable
-        values, so a run resumes without re-solving the SDP (.npz; the JAX
-        handler's fields, qcqp_tpu/api.py:249-270, with the generator state
-        in place of the PRNG key).  A JAX handler's file loads through
-        convert.load_jax_state instead."""
+        """Persist the generator state, the SDR and spectral caches and the
+        variable values, so a run resumes without re-solving an SDP (.npz;
+        the JAX handler's fields, qcqp_tpu/api.py:249-270, with the
+        generator state in place of the PRNG key).  A JAX handler's file
+        loads through convert.load_jax_state instead."""
         payload = {"torch_rng_state": self.generator.get_state().numpy()}
         if self.sdr_sol is not None:
             payload.update(sdr_sol=self.sdr_sol.cpu().numpy(),
                            sdr_bound=np.asarray(self.sdr_bound),
                            mu=self.mu.cpu().numpy(),
                            sigma_chol=self._sigma_chol.cpu().numpy())
+        if self.spectral_sol is not None:
+            payload.update(spectral_sol=self.spectral_sol.cpu().numpy(),
+                           spectral_bound=np.asarray(self.spectral_bound))
         try:
             payload["x"] = self.layout.flatten()
         except ValueError:
@@ -235,22 +253,24 @@ class QCQP:
             if "torch_rng_state" in z.files:
                 self.generator.set_state(
                     torch.from_numpy(z["torch_rng_state"].copy()))
-            self._load_sdr(z)
+            self._load_relaxations(z)
             if "x" in z.files:
                 self.layout.assign(z["x"])
 
-    def _load_sdr(self, z) -> None:
-        """The SDR cache of a saved state (this package's or the JAX
-        handler's .npz), onto the handler's device and dtype."""
-        if "sdr_sol" not in z.files:
-            return
+    def _load_relaxations(self, z) -> None:
+        """The SDR and spectral caches of a saved state (this package's or
+        the JAX handler's .npz), onto the handler's device and dtype."""
         def t(name):
             return torch.as_tensor(z[name], dtype=self.qcqp_form.dtype,
                                    device=self.device)
-        self.sdr_sol = t("sdr_sol")
-        self.sdr_bound = float(z["sdr_bound"])
-        self.mu = t("mu")
-        self._sigma_chol = t("sigma_chol")
+        if "sdr_sol" in z.files:
+            self.sdr_sol = t("sdr_sol")
+            self.sdr_bound = float(z["sdr_bound"])
+            self.mu = t("mu")
+            self._sigma_chol = t("sigma_chol")
+        if "spectral_sol" in z.files:
+            self.spectral_sol = t("spectral_sol")
+            self.spectral_bound = float(z["spectral_bound"])
 
     # -- batched multi-restart solve ---------------------------------------
     def solve(self, num_restarts: int = 32, suggest: str = s.RANDOM,

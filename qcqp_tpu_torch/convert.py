@@ -20,7 +20,8 @@ logger = logging.getLogger("qcqp_tpu_torch")
 def form_from_numpy(P, q, r, is_eq, device=None, dtype=None) -> QCQPForm:
     """A QCQPForm from the JAX package's form as numpy arrays, without
     re-symmetrizing (the JAX form already is), so both packages compute on
-    bit-identical data.  device: core.default_device()."""
+    bit-identical data.  device: core.default_device() (the card; without
+    one the caller must name the CPU)."""
     device = default_device(device)
     dtype = default_dtype(device) if dtype is None else dtype
     return QCQPForm(
@@ -32,18 +33,16 @@ def form_from_numpy(P, q, r, is_eq, device=None, dtype=None) -> QCQPForm:
 
 def load_jax_state(npz_path: str, handler) -> None:
     """Load a JAX handler's saved state into a qcqp_tpu_torch handler: the
-    variable values `x` and the SDR cache (sdr_sol, sdr_bound, mu,
-    sigma_chol), so the handler samples from the same relaxation without
-    re-solving it.  The JAX PRNG key, whose stream torch.Generator cannot
-    reproduce, and the spectral cache (SPECTRAL is not ported yet) are
-    skipped with a logged note."""
+    variable values `x`, the SDR cache (sdr_sol, sdr_bound, mu, sigma_chol)
+    and the spectral cache (spectral_sol, spectral_bound), so the handler
+    suggests from the same relaxations without re-solving them.  The JAX
+    PRNG key, whose stream torch.Generator cannot reproduce, is skipped
+    with a logged note."""
     if not npz_path.endswith(".npz"):
         npz_path = npz_path + ".npz"
     with np.load(npz_path) as z:
-        skipped = [k for k in ("key", "spectral_sol", "spectral_bound")
-                   if k in z.files]
-        if skipped:
-            logger.info("load_jax_state: skipping %s", ", ".join(skipped))
-        handler._load_sdr(z)
+        if "key" in z.files:
+            logger.info("load_jax_state: skipping key")
+        handler._load_relaxations(z)
         if "x" in z.files:
             handler.layout.assign(z["x"])

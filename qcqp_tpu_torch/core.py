@@ -23,10 +23,15 @@ import torch
 
 def default_device(device=None) -> torch.device:
     """The device a form lands on when the caller names none: the first CUDA
-    device when there is one, else the CPU, as the JAX package puts a form
-    on its accelerator by default."""
+    device, as the JAX package puts a form on its accelerator by default.
+    Without a card this raises instead of falling back to the CPU; a caller
+    that wants the CPU says so (device="cpu")."""
     if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "qcqp_tpu_torch: no CUDA device is available; pass "
+                "device=\"cpu\" to run on the CPU")
+        device = "cuda:0"
     return torch.device(device)
 
 
@@ -118,10 +123,20 @@ def max_violation(form: QCQPForm, x: torch.Tensor) -> torch.Tensor:
     return v.max().clamp_min(0.0)
 
 
+def violation_bucket(v: torch.Tensor, tol: float = 1e-4) -> torch.Tensor:
+    """floor(v / tol), the first key of the `better` order, with a NaN
+    violation ranked last.  A float32 point far enough out (|x| ~ 1e19)
+    overflows x'P_i x; summed here as +inf + -inf it gives NaN, where the
+    JAX package's dot gives +-inf, so the point ranks last there."""
+    b = torch.floor(v / tol)
+    return torch.where(torch.isnan(b), float("inf"), b)
+
+
 def better_key(form: QCQPForm, x: torch.Tensor, tol: float = 1e-4):
     """Lexicographic comparison key (violation bucket, objective)
     (reference: qcqp/utilities.py:135-146)."""
-    return torch.floor(max_violation(form, x) / tol), eval_objective(form, x)
+    return (violation_bucket(max_violation(form, x), tol),
+            eval_objective(form, x))
 
 
 def better(form: QCQPForm, x1, x2, tol: float = 1e-4) -> torch.Tensor:
@@ -159,8 +174,8 @@ def max_violation_batch(form: QCQPForm, xs: torch.Tensor) -> torch.Tensor:
 def better_batch(form: QCQPForm, x1, x2, tol: float = 1e-4) -> torch.Tensor:
     """`better` row by row for restart batches x1, x2 (R, n); equal keys
     prefer x2."""
-    v1 = torch.floor(max_violation_batch(form, x1) / tol)
-    v2 = torch.floor(max_violation_batch(form, x2) / tol)
+    v1 = violation_bucket(max_violation_batch(form, x1), tol)
+    v2 = violation_bucket(max_violation_batch(form, x2), tol)
     f1, f2 = eval_objective_batch(form, x1), eval_objective_batch(form, x2)
     take1 = (v1 < v2) | ((v1 == v2) & (f1 < f2))
     return torch.where(take1[:, None], x1, x2)

@@ -7,13 +7,16 @@ examples/boolean_least_squares.py:19-38).  Here a whole batch of restarts
 reference's lexicographic `better` order (violation bucket, then
 objective; qcqp/utilities.py:135-146), ties to the lowest restart index.
 
-Suggest methods: RANDOM and SDR (samples of the Shor relaxation's
-Gaussian; the relaxation is taken from `handler=` when it has one, else
-solved once per solve_restarts call).  SPECTRAL is not ported yet.
+Suggest methods: RANDOM, SDR (samples of the Shor relaxation's Gaussian)
+and SPECTRAL (the spectral relaxation's point, the same for every
+restart); a relaxation is taken from `handler=` when it has one, else
+solved once per solve_restarts call.
 
-Improve methods: COORD_DESCENT, ADMM and DCCP.  On a CUDA float32 form
-they go through the kernels by default (K1 or K2 for CD, K3 for ADMM, K4
-for DCCP); the caller can pass use_fused to choose.
+Improve methods: COORD_DESCENT, ADMM, DCCP and IPOPT.  On a CUDA float32
+form the first three go through the kernels by default (K1 or K2 for CD,
+K3 for ADMM, K4 for DCCP); the caller can pass use_fused to choose.
+IPOPT (solvers/nlp.py) is plain batched tensor code, as in the JAX
+package.
 
 Randomness is an explicit torch.Generator on the form's device.  Its
 normal draws are not jax.random's: tests hand both packages the same numpy
@@ -27,12 +30,14 @@ from typing import List, Optional, Union
 import torch
 
 from .. import settings as s
-from ..core import QCQPForm, eval_objective_batch, max_violation_batch
+from ..core import (QCQPForm, eval_objective_batch, max_violation_batch,
+                    violation_bucket)
 from ..solvers.coord_descent import improve_coord_descent_batch
 from ..solvers.coord_descent_fused import improve_coord_descent_fused
 from ..solvers import ccp as ccp_solver
 from ..solvers.admm import improve_admm_batch
-from ..solvers.sdp import solve_sdr
+from ..solvers.nlp import improve_nlp
+from ..solvers.sdp import solve_sdr, solve_spectral
 from ..kernels import admm_kernel, ccp_kernel
 
 
@@ -46,7 +51,7 @@ def best_point(form: QCQPForm, xs: torch.Tensor, tol: float = 1e-4):
     """Lexicographic (viol bucket, objective) argmin over the restarts.
     Returns (x_best (n,), f_best, viol_best) as tensors."""
     viols = max_violation_batch(form, xs)
-    buckets = torch.floor(viols / tol)
+    buckets = violation_bucket(viols, tol)
     fs = eval_objective_batch(form, xs)
     bmin = buckets.min()
     fs_masked = torch.where(buckets == bmin, fs, float("inf"))
@@ -69,10 +74,14 @@ def sdr_sampler(X: torch.Tensor, eps: float = 1e-8):
 
 def suggest_batch(form: QCQPForm, num: int,
                   generator: Optional[torch.Generator] = None,
-                  method: str = s.RANDOM, sdr_sampler=None) -> torch.Tensor:
+                  method: str = s.RANDOM, sdr_sampler=None,
+                  spectral_sol=None) -> torch.Tensor:
     """Batched suggest: (num, n) starting points.
     RANDOM: iid standard normal (reference: qcqp/qcqp.py:381-382).
-    SDR: x ~ N(mu, Sigma) through sdr_sampler=(mu, L) (qcqp.py:394-396)."""
+    SDR: x ~ N(mu, Sigma) through sdr_sampler=(mu, L) (qcqp.py:394-396).
+    SPECTRAL: spectral_sol in every row, as a contiguous (num, n) tensor
+    (the kernels take raw pointers to rows; expand's stride-0 view would
+    hand them one row)."""
     if method == s.RANDOM:
         return torch.randn((num, form.n), generator=generator,
                            dtype=form.dtype, device=form.device)
@@ -83,8 +92,10 @@ def suggest_batch(form: QCQPForm, num: int,
         xi = torch.randn((num, form.n), generator=generator,
                          dtype=form.dtype, device=form.device)
         return mu[None, :] + xi @ L.T
-    if method in s.NOT_PORTED:
-        raise s.not_ported(method)
+    if method == s.SPECTRAL:
+        if spectral_sol is None:
+            raise ValueError("SPECTRAL suggest_batch needs spectral_sol")
+        return spectral_sol.to(form.dtype).expand(num, form.n).contiguous()
     raise ValueError(f"Unknown suggest method: {method}")
 
 
@@ -142,8 +153,10 @@ def improve_chain(form: QCQPForm, xs: torch.Tensor,
                                    "inner_iters", "use_eigen_split")}
                 xs = ccp_solver.improve_ccp_batch(form, xs, tau=tau,
                                                   **ccp_kw)
-        elif method in s.NOT_PORTED:
-            raise s.not_ported(method)
+        elif method == s.IPOPT:
+            xs = improve_nlp(form, xs, **{
+                k: v for k, v in kwargs.items()
+                if k in ("num_outer", "num_inner", "mu0")})
         else:
             raise ValueError(f"Unknown improve method: {method}")
     return xs
@@ -158,8 +171,8 @@ def solve_restarts(form: QCQPForm, num_restarts: int,
     """Full pipeline: suggest -> improve chain -> best-of reduction.
 
     generator: a torch.Generator on the form's device (default: seed 0).
-    SDR takes the relaxation cached on `handler` (a QCQP) when it has one,
-    else solves it here (solve_sdr).
+    SDR and SPECTRAL take the relaxation cached on `handler` (a QCQP) when
+    it has one, else solve it here (solve_sdr, solve_spectral).
     On a CUDA float32 form CD, ADMM and DCCP run through the kernels unless
     the caller passes use_fused; the one-time setups of the fused ADMM and
     CCP (kernels/admm_kernel.ADMMFusedData, kernels/ccp_kernel.CCPFusedData)
@@ -168,7 +181,7 @@ def solve_restarts(form: QCQPForm, num_restarts: int,
     if mesh is not None:
         raise NotImplementedError(
             "solve_restarts(mesh=...) is not ported to qcqp_tpu_torch yet: "
-            "ROADMAP.md Queue 1 item 10 (scenarios + distributed)")
+            "it comes with the scenarios + distributed module")
     if generator is None:
         generator = torch.Generator(device=form.device).manual_seed(0)
     if "use_fused" not in kwargs and _fused_default(form):
@@ -183,13 +196,17 @@ def solve_restarts(form: QCQPForm, num_restarts: int,
             and not kwargs.get("use_eigen_split", False)
             and ccp_kernel.takes(form)):
         kwargs["ccp_data"] = ccp_kernel.CCPFusedData(form)
-    sampler = None
+    sampler = spectral_sol = None
     if suggest == s.SDR:
         if handler is not None and getattr(handler, "mu", None) is not None:
             sampler = (handler.mu, handler._sigma_chol)
         else:
             sampler = sdr_sampler(solve_sdr(form)[0])
+    elif suggest == s.SPECTRAL:
+        spectral_sol = getattr(handler, "spectral_sol", None)
+        if spectral_sol is None:
+            spectral_sol = solve_spectral(form)[0]
     xs = suggest_batch(form, num_restarts, generator, suggest,
-                       sdr_sampler=sampler)
+                       sdr_sampler=sampler, spectral_sol=spectral_sol)
     xs = improve_chain(form, xs, improve, **kwargs)
     return best_point(form, xs, better_tol)

@@ -1,6 +1,5 @@
-"""First-order semidefinite-relaxation solver and the SDR suggest's
-relaxation (JAX counterpart: qcqp_tpu/solvers/sdp.py; its spectral
-relaxation is not ported yet, ROADMAP.md Queue 1 item 6).
+"""First-order semidefinite-relaxation solver and the relaxations of the
+SDR and SPECTRAL suggests (JAX counterpart: qcqp_tpu/solvers/sdp.py).
 
 The reference hands its lifted SDPs to conic solvers through CVXPY
 (reference: qcqp/qcqp.py:64,92).  Here, as in the JAX package, one
@@ -711,7 +710,10 @@ def _solve_single(data_fn, form: QCQPForm, max_iters, tol, device,
     device; any other form solves where it lies.  "device" — where the form
     lies, in its dtype.  "host" — the CPU, in float64 for a form on the
     card (a CPU form stays as it is, as on the JAX package's CPU backend).
-    A torch.device (or its name) — there, in float64."""
+    A torch.device (or its name) — there, in float64.  `_solve_single.route`
+    names the result that an "auto" call on the card returned: "device"
+    (the first attempt), "ns_steps=20" (the retry) or "float64" (the
+    re-solve)."""
     sk = solver_kwargs or {}
     if (device == "auto" and form.dtype == torch.float32
             and form.device.type == "cuda"):
@@ -733,6 +735,7 @@ def _solve_single(data_fn, form: QCQPForm, max_iters, tol, device,
         sol, eff = _solve_single(data_fn, form, max_iters, tol, "device",
                                  init=init, solver_kwargs=dev_sk)
         if _accepted(form, sol, uviol_fn):
+            _solve_single.route = "device"
             return sol, eff
         if "ns_steps" not in dev_sk:
             logger.info("on-device f32 SDP attempt missed the %.0e gate "
@@ -744,14 +747,17 @@ def _solve_single(data_fn, form: QCQPForm, max_iters, tol, device,
                                        solver_kwargs=dict(dev_sk,
                                                           ns_steps=20))
             if _accepted(form, sol3, uviol_fn):
+                _solve_single.route = "ns_steps=20"
                 return sol3, eff3
         logger.info("on-device f32 SDP attempt discarded (residuals %.2e / "
                     "%.2e miss the %.0e gate); re-solving in float64 on %s",
                     float(sol.primal_res), float(sol.dual_res), _INACC_TOL,
                     form.device)
         solve_sdr.resolves += 1
-        return _solve_single(data_fn, form, max_iters, tol, form.device,
-                             init=init, solver_kwargs=solver_kwargs)
+        out = _solve_single(data_fn, form, max_iters, tol, form.device,
+                            init=init, solver_kwargs=solver_kwargs)
+        _solve_single.route = "float64"
+        return out
 
     if device in ("auto", "device"):
         target = None
@@ -801,6 +807,64 @@ def solve_sdr(form: QCQPForm, max_iters: int = 20000, tol: float = 1e-8,
     if full:
         return sol
     return sol.X, sol.objective
+
+
+def _aggregated_rows(form: QCQPForm, M):
+    """The homogeneous forms M[1:] of the '<=' rows summed (W1) and of the
+    '==' rows summed (W2)."""
+    W1 = torch.einsum("i,ijk->jk", (~form.is_eq).to(M.dtype), M[1:])
+    W2 = torch.einsum("i,ijk->jk", form.is_eq.to(M.dtype), M[1:])
+    return W1, W2
+
+
+def _spectral_data(form: QCQPForm) -> SDPData:
+    """The spectral (aggregated) relaxation's SDP data (sdp.py:1091-1103):
+    every '<=' row summed into one constraint, every '==' row into
+    another, and X[N-1, N-1] == 1."""
+    M = homogeneous_forms(form)
+    W0 = M[0]
+    N = W0.shape[-1]
+    W1, W2 = _aggregated_rows(form, M)
+    E = W0.new_zeros((N, N))
+    E[N - 1, N - 1] = 1.0
+    Ws = torch.stack([W1, W2, E])
+    b = W0.new_tensor([0.0, 0.0, 1.0])
+    is_ineq = torch.tensor([True, False, False], device=W0.device)
+    return build_sdp(W0, Ws, b, is_ineq)
+
+
+def _spectral_rel_viol(form: QCQPForm, X) -> float:
+    """Unscaled relative violation of the two aggregated rows and of
+    X[N-1, N-1] == 1 (the relaxation enforces only the summed rows, not
+    each original one; sdp.py:782-802)."""
+    M = homogeneous_forms(form)
+    X = X.to(M.dtype)
+    W1, W2 = _aggregated_rows(form, M)
+    Xn = 1.0 + _norm(X, (-2, -1))
+    v1 = torch.clamp_min((W1 * X).sum(), 0.0) / \
+        (torch.clamp_min(_norm(W1, (-2, -1)), 1e-12) * Xn)
+    v2 = (W2 * X).sum().abs() / \
+        (torch.clamp_min(_norm(W2, (-2, -1)), 1e-12) * Xn)
+    return float(torch.maximum(torch.maximum(v1, v2),
+                               (X[-1, -1] - 1.0).abs() / Xn))
+
+
+def solve_spectral(form: QCQPForm, max_iters: int = 20000, tol: float = 1e-8,
+                   check: bool = True, device="auto", **_ignored):
+    """Spectral (aggregated) relaxation (reference: qcqp/qcqp.py:41-70;
+    sdp.py:1106-1119): the lifted SDP of _spectral_data, solved on the
+    route of _solve_single (on a float32 CUDA form: the card, the
+    ns_steps=20 retry, then float64), and x recovered from the top
+    eigenpair of X by torch.linalg.eigh, as the JAX package takes it from
+    jnp.linalg.eigh.  No Farkas pre-check: the aggregated rows are not the
+    per-row affine system it classifies.  Returns (x (n,), bound)."""
+    sol, eff_tol = _solve_single(_spectral_data, form, max_iters, tol,
+                                 device, uviol_fn=_spectral_rel_viol)
+    if check:
+        check_status(sol, eff_tol)
+    lam, V = torch.linalg.eigh(sol.X)   # X symmetric: eigh == eig
+    x = torch.sqrt(torch.clamp_min(lam[-1], 0.0)) * V[:-1, -1]
+    return x, sol.objective
 
 
 def solve_sdr_batch(stacked: QCQPForm, max_iters: int = 5000,
@@ -865,4 +929,5 @@ def solve_sdr_batch(stacked: QCQPForm, max_iters: int = 5000,
 
 solve_sdp.masked_tail = 0
 solve_sdr.resolves = 0
+_solve_single.route = None
 solve_sdr_batch.fallbacks = 0

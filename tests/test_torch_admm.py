@@ -121,7 +121,7 @@ def test_admm_phase1_reaches_feasibility():
     prob = tqt.Problem(tqt.Minimize(tqt.sum_squares(x)),
                        [tqt.sum_squares(x) <= 1,
                         tqt.sum_squares(x - a) <= 1])
-    form, _, _ = tcanon(prob, np.float64)
+    form, _, _ = tcanon(prob, np.float64, "cpu")
     x0 = torch.full((2, n), 3.0, dtype=torch.float64)
     x0[1] = -3.0
     z = ta.admm_phase1(form, precompute_eigh(form), x0, 1e-2, 500)
@@ -136,7 +136,7 @@ def test_admm_convex_projection_problem():
     x = tqt.Variable(n)
     prob = tqt.Problem(tqt.Minimize(tqt.sum_squares(x - c)),
                        [tqt.sum_squares(x) <= 1])
-    form, _, _ = tcanon(prob, np.float64)
+    form, _, _ = tcanon(prob, np.float64, "cpu")
     out = ta.improve_admm(form, torch.zeros(n, dtype=torch.float64))
     assert float(tcore.max_violation(form, out)) < 5e-2
     assert float(tcore.eval_objective(form, out)) <= 1.1   # optimum 1.0
@@ -174,7 +174,7 @@ def test_handler_improve_unfused_matches_jax():
         return qt.Problem(qt.Minimize(qt.sum_squares(A @ x - b)),
                           [qt.square(x) == 1]), x
     (jp_, jx), (tp_, tx) = prob(jqt), prob(tqt)
-    jh, th = jqt.QCQP(jp_), tqt.QCQP(tp_)
+    jh, th = jqt.QCQP(jp_), tqt.QCQP(tp_, device="cpu")
     x0 = np.sign(np.random.default_rng(0).standard_normal(8))
     jx.value, tx.value = x0.copy(), x0.copy()
     fj, vj = jh.improve(jqt.ADMM, num_iters=40)

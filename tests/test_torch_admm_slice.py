@@ -90,7 +90,7 @@ def test_solve_restarts_routes_admm_through_k3(monkeypatch):
     calls = _spy(monkeypatch, admm_kernel, "improve_admm_fused")
     setups = _spy(monkeypatch, admm_kernel, "ADMMFusedData")
     prob, _ = boolean_ls(tqt)
-    form = tqt.QCQP(prob, dtype=np.float32).qcqp_form
+    form = tqt.QCQP(prob, dtype=np.float32, device="cpu").qcqp_form
     gen = lambda: torch.Generator().manual_seed(0)
     x, f, v = trestarts.solve_restarts(form, 32, gen(), improve=tqt.ADMM,
                                        num_iters=10)
@@ -114,7 +114,7 @@ def test_routing_rule_wide_and_unconstrained(monkeypatch):
     phases = _spy(monkeypatch, admm_kernel, "admm_phase")
     unfused = _spy(monkeypatch, tadmm, "improve_admm_batch")
     prob, _ = boolean_ls(tqt, n=6, m=9)
-    form = tqt.QCQP(prob, dtype=np.float32).qcqp_form
+    form = tqt.QCQP(prob, dtype=np.float32, device="cpu").qcqp_form
     xs = torch.randn(4, 6, generator=torch.Generator().manual_seed(1))
     monkeypatch.setattr(admm_kernel, "MAX_N", 4)
     out = admm_kernel.improve_admm_fused(form, xs, num_iters=5)
@@ -136,7 +136,7 @@ def test_handler_improve_admm_through_k3_and_cache(monkeypatch):
     """QCQP.improve(ADMM) takes K3 when fused is on (use_fused=True stands
     in for the CUDA default on the CPU) and caches one setup per rho."""
     prob, _ = boolean_ls(tqt, n=6, m=9, seed=0)
-    h = tqt.QCQP(prob, dtype=np.float32)
+    h = tqt.QCQP(prob, dtype=np.float32, device="cpu")
     h.suggest(tqt.RANDOM)
     calls = _spy(monkeypatch, admm_kernel, "improve_admm_fused")
     f1, v1 = h.improve(tqt.ADMM, use_fused=True, num_iters=60)
@@ -156,7 +156,7 @@ def test_rho_below_minimum_raises():
     W = np.array([[1.0, 2.0, 0.0], [2.0, -1.0, 0.0], [0.0, 0.0, -3.0]])
     prob = tqt.Problem(tqt.Minimize(tqt.quad_form(x, W)),
                        [tqt.square(x) <= 1])
-    h = tqt.QCQP(prob)
+    h = tqt.QCQP(prob, device="cpu")
     min_rho = float(tadmm.min_valid_rho(h.qcqp_form))
     assert min_rho > 0
     with pytest.raises(ValueError, match="rho parameter is too small"):
@@ -171,7 +171,7 @@ def test_example_chain_cd_then_admm(fused):
     improve(CD), then improve(ADMM, phase1=False) ends no worse than CD's
     point under `better`."""
     prob, x = boolean_ls(tqt, n=10, m=15, seed=1)
-    h = tqt.QCQP(prob, seed=2,
+    h = tqt.QCQP(prob, seed=2, device="cpu",
                  dtype=np.float32 if fused else np.float64)
     h.suggest(tqt.RANDOM)
     h.improve(tqt.COORD_DESCENT)

@@ -48,7 +48,7 @@ def test_brute_force_optimum():
 def test_handler_improve_matches_jax(phase1):
     jprob, jx, _, _ = boolean_ls(jqt)
     tprob, tx, _, _ = boolean_ls(tqt)
-    jh, th = jqt.QCQP(jprob), tqt.QCQP(tprob)
+    jh, th = jqt.QCQP(jprob), tqt.QCQP(tprob, device="cpu")
     x0 = np.random.default_rng(3).standard_normal(10)
     if not phase1:
         x0 = np.sign(x0) * (1.0 + 1e-3 * x0)
@@ -67,7 +67,7 @@ def test_handler_maximize_sign_and_list_improve():
         return qt.Problem(qt.Maximize(qt.quad_form(x, W)),
                           [qt.square(x) <= 1]), x
     (jp, jx), (tp, tx) = prob(jqt), prob(tqt)
-    jh, th = jqt.QCQP(jp), tqt.QCQP(tp)
+    jh, th = jqt.QCQP(jp), tqt.QCQP(tp, device="cpu")
     x0 = np.array([0.3, -0.2, 0.5])
     jx.value, tx.value = x0.copy(), x0.copy()
     steps = [jqt.COORD_DESCENT, jqt.COORD_DESCENT]
@@ -86,7 +86,7 @@ def test_restart_chain_matches_jax_from_same_starts(dtype):
     jprob, _, _, _ = boolean_ls(jqt)
     tprob, _, _, _ = boolean_ls(tqt)
     jform = jqt.QCQP(jprob).qcqp_form
-    tform = tqt.QCQP(tprob, dtype=dtype).qcqp_form
+    tform = tqt.QCQP(tprob, dtype=dtype, device="cpu").qcqp_form
     xs = np.random.default_rng(5).standard_normal((64, 10))
     xj = improve_coord_descent_batch(jform, jnp.asarray(xs), num_iters=20)
     _, fj, vj = jax_best_point(jform, xj)
@@ -106,7 +106,7 @@ def test_restart_chain_matches_jax_from_same_starts(dtype):
 def test_boolean_ls_golden_through_solve(use_fused):
     prob, x, A, b = boolean_ls(tqt)
     dtype = torch.float32 if use_fused else torch.float64
-    h = tqt.QCQP(prob, seed=0, dtype=dtype)
+    h = tqt.QCQP(prob, seed=0, dtype=dtype, device="cpu")
     f, v = h.solve(num_restarts=64, num_iters=6, use_fused=use_fused)
     assert v < 1e-2
     assert BRUTE - 0.1 <= f <= BRUTE + 2e-2
@@ -116,7 +116,7 @@ def test_boolean_ls_golden_through_solve(use_fused):
 
 def test_solve_restarts_generator_reproducible():
     prob, _, _, _ = boolean_ls(tqt)
-    form = tqt.QCQP(prob).qcqp_form
+    form = tqt.QCQP(prob, device="cpu").qcqp_form
     runs = [tqt.solve_restarts(form, 16, torch.Generator().manual_seed(7),
                                num_iters=3) for _ in range(2)]
     for a, b in zip(*runs):
@@ -126,27 +126,44 @@ def test_solve_restarts_generator_reproducible():
 
 
 def test_methods_outside_the_slice_raise():
-    prob, _, _, _ = boolean_ls(tqt)
-    h = tqt.QCQP(prob)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        h.suggest(tqt.SPECTRAL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        h.improve(tqt.IPOPT)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        h.solve(num_restarts=4, improve=tqt.IPOPT)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        h.solve(num_restarts=4, suggest=tqt.SPECTRAL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Every method of the JAX handler runs now: SPECTRAL and IPOPT match
+    the JAX package from the same point (the spectral bound and point, and
+    the IPOPT improve of the same start, 1e-6 relative), and run through
+    QCQP.solve.  The mesh (scenarios + distributed) and unknown names
+    still raise."""
+    jprob, jx, _, _ = boolean_ls(jqt)
+    prob, x, _, _ = boolean_ls(tqt)
+    jh, h = jqt.QCQP(jprob), tqt.QCQP(prob, device="cpu")
+    fj, vj = jh.suggest(jqt.SPECTRAL)
+    ft, vt = h.suggest(tqt.SPECTRAL)
+    np.testing.assert_allclose(h.spectral_bound, jh.spectral_bound,
+                               rtol=1e-6)
+    np.testing.assert_allclose([ft, vt], [fj, vj], rtol=1e-6)
+    x0 = np.random.default_rng(8).standard_normal(10)
+    jx.value, x.value = x0.copy(), x0.copy()
+    fj, vj = jh.improve(jqt.IPOPT)
+    ft, vt = h.improve(tqt.IPOPT)
+    np.testing.assert_allclose(ft, fj, rtol=1e-6)
+    np.testing.assert_allclose(vt, vj, rtol=0, atol=1e-9)
+    assert vt < 1e-4
+    for kw in (dict(improve=tqt.IPOPT), dict(suggest=tqt.SPECTRAL)):
+        f, v = h.solve(num_restarts=4, **kw)
+        assert np.isfinite(f) and np.isfinite(v)
+    with pytest.raises(NotImplementedError, match="scenarios"):
         tqt.solve_restarts(h.qcqp_form, 4, mesh=object())
     with pytest.raises(ValueError):
         h.suggest("nope")
     with pytest.raises(ValueError):
         h.improve("nope")
+    with pytest.raises(ValueError):
+        tqt.solve_restarts(h.qcqp_form, 4, improve="nope")
+    with pytest.raises(ValueError):
+        tqt.solve_restarts(h.qcqp_form, 4, suggest="nope")
 
 
 def test_improve_auto_suggests():
     prob, x, _, _ = boolean_ls(tqt)
-    h = tqt.QCQP(prob)
+    h = tqt.QCQP(prob, device="cpu")
     assert x.value is None
     f, v = h.improve(tqt.COORD_DESCENT)
     assert x.value is not None and v < 1e-2
@@ -154,7 +171,7 @@ def test_improve_auto_suggests():
 
 def test_save_and_load_state(tmp_path):
     prob, x, _, _ = boolean_ls(tqt)
-    h = tqt.QCQP(prob, seed=3)
+    h = tqt.QCQP(prob, seed=3, device="cpu")
     h.suggest()
     path = str(tmp_path / "state")
     h.save_state(path)
@@ -173,7 +190,7 @@ def test_load_jax_state(tmp_path, caplog):
     path = str(tmp_path / "jax_state")
     jh.save_state(path)
     tprob, tx, _, _ = boolean_ls(tqt)
-    th = tqt.QCQP(tprob)
+    th = tqt.QCQP(tprob, device="cpu")
     with caplog.at_level(logging.INFO, logger="qcqp_tpu_torch"):
         load_jax_state(path, th)
     np.testing.assert_array_equal(tx.value, jx.value)

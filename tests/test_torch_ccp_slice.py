@@ -169,22 +169,33 @@ def test_example_chain_cd_then_dccp():
 
 @pytest.mark.parametrize("cuda", [False, True])
 def test_forms_land_on_the_default_device(monkeypatch, cuda):
-    """make_form, random_form, form_from_numpy and canonicalize put the form
-    on the first CUDA device when there is one, else on the CPU; the dtype
-    follows the device.  With CUDA mocked as present only the choice is
-    checked (no tensor is made on a card)."""
+    """With no device named, make_form, random_form, form_from_numpy,
+    canonicalize and QCQP put the form on the first CUDA device, and
+    without a card they raise instead of falling back to the CPU; a device
+    the caller names is honoured, and the dtype follows the device.  With
+    CUDA mocked as present only the choice is checked (no tensor is made
+    on a card)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: cuda)
-    assert tcore.default_device() == torch.device("cuda" if cuda else "cpu")
     assert tcore.default_device("cpu") == torch.device("cpu")
     if cuda:
+        assert tcore.default_device() == torch.device("cuda:0")
         return
     P = np.stack([np.eye(2), -np.eye(2)])
-    forms = [tcore.make_form(P, np.zeros((2, 2)), np.zeros(2), [True]),
-             tcore.random_form(np.random.default_rng(0), 3, 2),
-             convert.form_from_numpy(P, np.zeros((2, 2)), np.zeros(2),
-                                     [True])]
     prob, _ = boolean_ls(tqt, n=3, m=4)
-    forms.append(expressions.canonicalize(prob)[0])
-    for form in forms:
+    makers = [
+        lambda **kw: tcore.make_form(P, np.zeros((2, 2)), np.zeros(2),
+                                     [True], **kw),
+        lambda **kw: tcore.random_form(np.random.default_rng(0), 3, 2, **kw),
+        lambda **kw: convert.form_from_numpy(P, np.zeros((2, 2)),
+                                             np.zeros(2), [True], **kw),
+        lambda **kw: expressions.canonicalize(prob, **kw)[0],
+        lambda **kw: tqt.QCQP(prob, **kw).qcqp_form,
+    ]
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tcore.default_device()
+    for make in makers:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            make()
+        form = make(device="cpu")
         assert form.device == torch.device("cpu")
         assert form.dtype == torch.float64

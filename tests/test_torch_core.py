@@ -127,3 +127,31 @@ def test_default_dtype_follows_device():
     with pytest.raises(ValueError):
         tcore.make_form(np.zeros((2, 2, 2)), np.zeros((2, 2)), np.zeros(2),
                         [True, False], device="cpu")
+
+
+def test_overflowed_lane_ranks_last():
+    """A float32 lane far enough out (|x| ~ 1e20) overflows x'P x: the
+    port's summed products give +inf + -inf = NaN where the JAX package's
+    dot gives +-inf.  `better`, better_batch and best_point rank such a
+    lane last, so both packages pick the same point."""
+    P = np.stack([np.eye(2), np.diag([1.0, -1.0])]).astype(np.float32)
+    q, r = np.zeros((2, 2), np.float32), np.array([0.0, -1.0], np.float32)
+    is_eq = np.array([True])
+    xs = np.array([[3.0, 0.0], [1.0, 0.0], [1e20, 1e20]], np.float32)
+    jform = jcore.make_form(P, q, r, is_eq)
+    tform = form_from_numpy(P, q, r, is_eq, device="cpu",
+                            dtype=torch.float32)
+    txs = torch.from_numpy(xs)
+    assert torch.isnan(tcore.max_violation_batch(tform, txs)[2])
+    xj, fj, vj = jax_best_point(jform, jnp.asarray(xs))
+    xt, ft, vt = torch_best_point(tform, txs)
+    np.testing.assert_array_equal(xt.numpy(), np.asarray(xj))
+    assert float(ft) == float(fj) and float(vt) == float(vj)
+    for i in (0, 1):
+        want = np.asarray(jcore.better(jform, jnp.asarray(xs[i]),
+                                       jnp.asarray(xs[2])))
+        np.testing.assert_array_equal(
+            tcore.better(tform, txs[i], txs[2]).numpy(), want)
+        np.testing.assert_array_equal(
+            tcore.better_batch(tform, txs[i:i + 1], txs[2:]).numpy()[0],
+            want)

@@ -179,5 +179,19 @@ def test_layout_round_trip_and_dcp():
 
 
 def test_complexvar_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tqt.ComplexVariable(3)
+    """complexvar is ported now (tests/test_torch_complexvar.py holds it
+    against the JAX package): ComplexVariable is the port's own class, and
+    its re and im parts canonicalize into the same form as the JAX
+    package's."""
+    from qcqp_tpu_torch import complexvar
+    assert tqt.ComplexVariable is complexvar.ComplexVariable
+
+    def build(qt):
+        z = qt.ComplexVariable(3)
+        return qt.Problem(qt.Minimize(qt.sum_abs2(z - (1 + 2j))),
+                          [qt.real(z) <= 1])
+    jform = jax_canonicalize(build(jqt), np.float64)[0]
+    tform = torch_canonicalize(build(tqt), np.float64, "cpu")[0]
+    for name in ("P", "q", "r", "is_eq"):
+        np.testing.assert_array_equal(getattr(tform, name).numpy(),
+                                      np.asarray(getattr(jform, name)))

@@ -560,3 +560,97 @@ def test_sdr_suggest_on_the_card(cuda):
     h.suggest(qt.SDR)
     assert sdp.solve_sdr.resolves == before
     assert h.mu.is_cuda and abs(h.sdr_bound - 28.750) < 2e-2
+
+
+def _bls_problem(qt):
+    rs = np.random.RandomState(1)
+    A, b = rs.randn(15, 10), rs.randn(15, 1).ravel()
+    x = qt.Variable(10)
+    return qt.Problem(qt.Minimize(qt.sum_squares(A @ x - b)),
+                      [qt.square(x) == 1])
+
+
+def test_spectral_suggest_on_the_card(cuda):
+    """QCQP(prob).suggest(SPECTRAL) on the default device, float32: the
+    route taken is reported, the point lies on the card, and the bound and
+    point are finite, within 2e-2 of the JAX package's float64 bound
+    13.7365 (the SDR goldens' tolerance) and below the SDR bound
+    28.750."""
+    import qcqp_tpu_torch as qt
+    from qcqp_tpu_torch.solvers import sdp
+    h = qt.QCQP(_bls_problem(qt))
+    assert h.device.type == "cuda" and h.qcqp_form.dtype == torch.float32
+    sdp._solve_single.route = None
+    h.suggest(qt.SPECTRAL)
+    assert sdp._solve_single.route in ("device", "ns_steps=20", "float64")
+    assert h.spectral_sol.is_cuda
+    assert torch.isfinite(h.spectral_sol).all()
+    assert abs(h.spectral_bound - 13.736533) < 2e-2
+    assert h.spectral_bound <= 28.750
+
+
+def _convex_nlp_arrays(seed, n=8, m_in=4):
+    """tests/test_nlp.py:20-35's convex instance, as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    k = m_in + 2
+    P = np.zeros((k, n, n))
+    q = rng.standard_normal((k, n))
+    r = np.zeros(k)
+    for i in range(m_in + 1):
+        A = rng.standard_normal((n, n)) / np.sqrt(n)
+        P[i] = A @ A.T + 0.1 * np.eye(n)
+    r[1:m_in + 1] = -rng.uniform(0.5, 2.0, m_in)
+    is_eq = np.zeros(m_in + 1, bool)
+    is_eq[-1] = True
+    return 0.5 * (P + np.swapaxes(P, -1, -2)), q, r, is_eq
+
+
+def test_nlp_float32_on_the_card(cuda):
+    """improve_nlp in float32 on the card, 64 random starts of a dense
+    random form (n = 20, m = 8, half equalities): every lane finite and
+    none worse than its start under `better`."""
+    from qcqp_tpu_torch.convert import form_from_numpy
+    from qcqp_tpu_torch.core import (eval_objective_batch,
+                                     max_violation_batch)
+    from qcqp_tpu_torch.solvers.nlp import improve_nlp
+    rng = np.random.default_rng(12)
+    n, m = 20, 8
+    A = rng.standard_normal((m + 1, n, n)) / np.sqrt(n)
+    form = form_from_numpy(0.5 * (A + np.swapaxes(A, -1, -2)),
+                           rng.standard_normal((m + 1, n)) / np.sqrt(n),
+                           rng.standard_normal(m + 1), rng.random(m) < 0.5,
+                           device=cuda, dtype=torch.float32)
+    xs = torch.from_numpy(rng.standard_normal((64, n)).astype(np.float32))
+    xs = xs.to(cuda)
+    x = improve_nlp(form, xs)
+    assert x.dtype == torch.float32 and torch.isfinite(x).all()
+
+    def key(z):
+        return (torch.floor(max_violation_batch(form, z) / 1e-4),
+                eval_objective_batch(form, z))
+    (vb0, f0), (vb, f) = key(xs), key(x)
+    assert bool(((vb < vb0) | ((vb == vb0) & (f <= f0))).all())
+
+
+def test_nlp_card_float64_matches_cpu(cuda):
+    """The port in float64 on the card against the port in float64 on the
+    CPU, 16 starts of tests/test_nlp.py's convex instance (seed 1): every
+    lane that the CPU run determines (x moves by less than 1e-9 when the
+    starts move by a few ulps) within 1e-7, as tests/test_torch_nlp.py
+    holds the port against the JAX package."""
+    from qcqp_tpu_torch.convert import form_from_numpy
+    from qcqp_tpu_torch.solvers.nlp import improve_nlp
+    arrays = _convex_nlp_arrays(1)
+    cpu = form_from_numpy(*arrays, device="cpu", dtype=torch.float64)
+    card = form_from_numpy(*arrays, device=cuda, dtype=torch.float64)
+    X0 = np.random.default_rng(40).standard_normal((16, 8))
+    Xs = np.concatenate([X0] + [
+        X0 * (1.0 + 4e-16 * np.random.default_rng(50 + s)
+              .standard_normal(X0.shape)) for s in range(3)])
+    xc = improve_nlp(cpu, torch.from_numpy(Xs)).numpy().reshape(4, 16, 8)
+    spread = np.abs(xc[1:] - xc[0]).max(axis=(0, 2))
+    determined = spread < 1e-9
+    assert determined.sum() >= 8
+    xg = improve_nlp(card, torch.from_numpy(X0).to(cuda)).cpu().numpy()
+    np.testing.assert_allclose(xg[determined], xc[0][determined], rtol=0,
+                               atol=1e-7)

@@ -1,12 +1,14 @@
 """The SDR suggest end to end on the CPU, in float64, through
 qcqp_tpu_torch's modeling layer and handler, against qcqp_tpu's: the SDR
 goldens of BASELINE.md (boolean least squares 28.750, maxcut 57.207,
-circle packing 5.000; beamforming waits for complexvar), the handler's
+circle packing 5.000; beamforming 1.970, realified by hand as in
+tests/test_api_examples.py), the handler's
 cached relaxation (bound, mu, Sigma = L L^T), its samples, SDR starts
 through solve_restarts and QCQP.solve, and the relaxation carried across
 by load_jax_state.  Sigma is compared as L L^T: eigenvector signs are each
 LAPACK call's own choice, and the port canonicalises nothing the JAX
-package does not.  SPECTRAL is not ported yet and must still raise."""
+package does not.  SPECTRAL runs too (tests/test_torch_spectral.py holds
+it against the JAX package)."""
 
 import subprocess
 import sys
@@ -160,13 +162,19 @@ def test_save_and_load_state_carry_the_relaxation(tmp_path):
 
 
 def test_sdr_is_ported_and_spectral_still_raises():
-    assert tqt.SDR not in settings.NOT_PORTED
-    assert tqt.IPOPT in settings.NOT_PORTED
+    """SPECTRAL is ported now (the name is kept): the settings hold no list
+    of unported methods, and the handler's spectral suggest and
+    solve_restarts from its point match the JAX package's (1e-6)."""
+    assert not hasattr(settings, "NOT_PORTED")
     h = tqt.QCQP(boolean_ls(tqt), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6"):
-        h.suggest(tqt.SPECTRAL)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6"):
-        tqt.solve_restarts(h.qcqp_form, 4, suggest=tqt.SPECTRAL)
+    jh = jqt.QCQP(boolean_ls(jqt))
+    assert h.suggest(tqt.SPECTRAL) == pytest.approx(
+        jh.suggest(jqt.SPECTRAL), rel=1e-6)
+    assert h.spectral_bound == pytest.approx(jh.spectral_bound, rel=1e-6)
+    assert h.spectral_bound <= BRUTE_BLS
+    x, f, v = tqt.solve_restarts(h.qcqp_form, 4, suggest=tqt.SPECTRAL,
+                                 handler=h, num_iters=20)
+    assert torch.isfinite(x).all() and float(v) < 1e-2
 
 
 def test_port_imports_no_jax():
@@ -177,3 +185,38 @@ def test_port_imports_no_jax():
             "assert not any(m == 'qcqp_tpu' or m.startswith('qcqp_tpu.') "
             "for m in sys.modules)")
     subprocess.run([sys.executable, "-c", code], check=True)
+
+
+def beamforming(qt):
+    """tests/test_api_examples.py:158-171: the secondary-user beamforming
+    model, complex channels realified by hand into x in R^(2n)
+    (examples/secondary_user_beamforming.py:37)."""
+    n, m, l = 20, 5, 2
+    tau, eta = 20.0, 2.0
+    np.random.seed(1)
+    HR, HI = np.random.randn(m, n), np.random.randn(m, n)
+    A, B = np.hstack((HR, HI)), np.hstack((-HI, HR))
+    GR, GI = np.random.randn(l, n), np.random.randn(l, n)
+    C, D = np.hstack((GR, GI)), np.hstack((-GI, GR))
+    x = qt.Variable(2 * n)
+    prob = qt.Problem(qt.Minimize(qt.sum_squares(x)),
+                      [qt.square(A @ x) + qt.square(B @ x) >= tau,
+                       qt.square(C @ x) + qt.square(D @ x) <= eta])
+    return prob, x
+
+
+def test_beamforming_golden_matches_jax():
+    """The beamforming SDR golden 1.970 (within 2e-2, and 1e-6 relative of
+    the JAX handler's bound), then DCCP from the same point in both
+    packages reaches violation < 1e-4 with the same (f, v) to 1e-6."""
+    (tp, tx), (jp, jx) = beamforming(tqt), beamforming(jqt)
+    th, jh = tqt.QCQP(tp, device="cpu"), jqt.QCQP(jp)
+    th.suggest(tqt.SDR)
+    jh.suggest(jqt.SDR)
+    assert abs(th.sdr_bound - 1.970) < 2e-2
+    assert abs(th.sdr_bound - jh.sdr_bound) <= 1e-6 * jh.sdr_bound
+    tx.value = jx.value.copy()         # the JAX handler's SDR sample
+    ft, vt = th.improve(tqt.DCCP)
+    fj, vj = jh.improve(jqt.DCCP)
+    assert vt < 1e-4 and ft <= 2.5
+    np.testing.assert_allclose([ft, vt], [fj, vj], rtol=1e-6, atol=1e-10)
