@@ -53,7 +53,7 @@ launch no kernel, go first (`plain_runs`: the plain versions that phases
                BENCH_N=256, BENCH_M=20 (seed 0) through solve_restarts at
                R = 10,240, 10 sweeps, with no mega= argument, so that
                `_mega_fits` sends phase 1 to K2 once per coordinate: a
-               one-sweep warm-up and 3 timed solves, restarts/s, best
+               one-sweep warm-up and one timed solve, restarts/s, best
                (f, v), K1 (none) and K2 (n a sweep) launches; K2 alone on
                one of the route's launches, against its plain version
                and timed;
@@ -175,6 +175,30 @@ launch no kernel, go first (`plain_runs`: the plain versions that phases
                short schedule where the CPU's lanes are determined; the
                handler's improve(IPOPT) on boolean least squares at
                violation < 1e-4.
+ 18. scenarios the scenario serving path (qcqp_tpu_torch/parallel/
+               scenarios.py) in float32: (a) examples/scenario_serving.py
+               at its own size (S = 8 boolean least-squares instances,
+               n = m = 12): bank write, forms_from_bank, solve_sdr_batch
+               on its default route, solve_scenarios with 64 restarts
+               through one K1 launch, every violation < 1e-2 and every
+               objective at least its SDR bound - 1e-3; (b) the serving
+               size: S = 132 bench forms (n = 100, m = 50, instance s
+               from seed s, its own equality pattern) as a float64 bank
+               (about 539 MB, in a temporary directory), loaded back in
+               two forms_from_bank halves (MB/s of the write and of the
+               load), R = 64 a scenario, 10 sweeps: a warm-up and 3 timed
+               solve_scenarios (one K1 launch each), scenario-restarts/s,
+               the best (f, v) summary and the share feasible; K1's
+               stacked launch alone on the first timed solve's starts
+               against the loop of 132 single-form launches, every lane
+               bit for bit, both timed, and its bound from the
+               restart-sweeps and probes K1's plain version counts on
+               scenarios 0 and 1 (a CPU process started at the
+               beginning, `--k1-sample`), scaled to the grid; (c)
+               improve=ADMM and improve=DCCP (max_iter=6) on the first 4
+               scenarios, each equal to solve_restarts on its form from
+               the same starts, bit for bit, K3 launched twice a scenario
+               (its two phases) and K4 once.
 
 Then the seconds each phase took, the card's line from nvidia-smi, the
 kernels' JSON line (time, plain time, bound and launches of each kernel),
@@ -446,11 +470,12 @@ def phase_k2(bench_is_eq):
 # K2 once per coordinate): bench.py's form at BENCH_N=256, BENCH_M=20.
 N_K2, M_K2 = 256, 20
 R_K2_CHECK, K2_CHECK_SWEEPS = 256, 2
+K2_ROUTE_REPEATS = 1            # timed solves of the route, after a warm-up
 
 
 def phase_k2_route(arrays):
     """solve_restarts on the n = 256, m = 20 form at R = 10,240, 10 sweeps,
-    with no mega= argument: one warm-up (one sweep) and 3 timed solves, K1
+    with no mega= argument: one warm-up (one sweep) and one timed solve, K1
     0 launches and K2 at least n; K2 alone on the inputs of one of the
     route's launches (coordinate n/2 of the warm-up's sweep), against its
     plain version and timed; then the route at R = 256, 2 sweeps, every
@@ -489,7 +514,7 @@ def phase_k2_route(arrays):
     two_phase_sweeps.launches = 0
     k2.phase1_coordinate_update.launches = 0
     times, results = [], []
-    for seed in (1, 2, 3):
+    for seed in range(1, 1 + K2_ROUTE_REPEATS):
         ms, res = host_ms(lambda: solve(seed))
         times.append(ms)
         results.append(res)
@@ -499,7 +524,7 @@ def phase_k2_route(arrays):
         if not (torch.isfinite(x).all() and x.shape == (N_K2,)
                 and bool(torch.isfinite(f)) and bool(torch.isfinite(v))):
             raise AssertionError("the K2 route returned a non-finite point")
-    if launches["k1"] != 0 or launches["k2"] < 3 * N_K2:
+    if launches["k1"] != 0 or launches["k2"] < K2_ROUTE_REPEATS * N_K2:
         raise AssertionError(f"K2 route launch counts {launches}")
 
     alone = k2_check(args, kw, timed=True)
@@ -532,14 +557,14 @@ def phase_k2_route(arrays):
           "restarts_per_s": R_MAIN / ms_route * 1e3,
           "best_f": f_best, "best_viol": v_best,
           "launches": launches,
-          "k2_launches_per_solve": launches["k2"] / 3,
+          "k2_launches_per_solve": launches["k2"] / K2_ROUTE_REPEATS,
           "k2_alone": {"coordinate": N_K2 // 2, **alone, **b},
           "vs_plain": {"R": R_K2_CHECK, "sweeps": K2_CHECK_SWEEPS,
                        "restarts_identical": int(same.sum()),
                        "k2_launches": check_launches,
                        "moved": int((x_k != xs).any(dim=1).sum())}})
-    return {"launches": launches["k2"] // 3, "ms": alone["ms"],
-            "max_abs_err": alone["max_abs_dv"],
+    return {"launches": launches["k2"] // K2_ROUTE_REPEATS,
+            "ms": alone["ms"], "max_abs_err": alone["max_abs_dv"],
             "plain_ms": alone["plain_ms"], "bound_ms": b["bound_ms"],
             "bound_by": b["bound_by"], "ms_per_solve": ms_route,
             "shape": f"n={N_K2}, m={M_K2}, E={E}, R={R_MAIN} (split)"}
@@ -2190,6 +2215,311 @@ def phase_nlp_path(arrays):
             for R in R_NLP}
 
 
+S_SERVE, R_SERVE = 132, 64       # one scenario an SM; scenario_serving.py:55
+SERVE_REPEATS = 3
+K1_SAMPLE = (0, 1)                 # scenarios whose lanes size K1's bound
+S_EXAMPLE, N_EXAMPLE, M_EXAMPLE = 8, 12, 12   # scenario_serving.py:27
+S_ROUTES, CCP_ROUTE_KW = 4, dict(max_iter=6)  # phase (c); 1/10 of the trips
+
+
+def serving_example_arrays():
+    """examples/scenario_serving.py:27-40 through the port's modeling layer
+    in float64 on the host: S boolean least-squares instances from
+    default_rng(0), as stacked numpy arrays."""
+    import qcqp_tpu_torch as qt
+    rng = np.random.default_rng(0)
+    forms = []
+    for _ in range(S_EXAMPLE):
+        A = rng.standard_normal((M_EXAMPLE, N_EXAMPLE))
+        b = rng.standard_normal(M_EXAMPLE)
+        x = qt.Variable(N_EXAMPLE)
+        prob = qt.Problem(qt.Minimize(qt.sum_squares(A @ x - b)),
+                          [qt.square(x) == 1])
+        forms.append(qt.canonicalize(prob, device="cpu")[0])
+    return [np.stack([f[i].numpy() for f in forms]) for i in range(4)]
+
+
+def serving_bank_arrays():
+    """S_SERVE instances of bench.py's form (n = 100, m = 50), instance s
+    from seed s, each with its own equality pattern, stacked in float64."""
+    out = [np.empty((S_SERVE, M + 1, N, N)), np.empty((S_SERVE, M + 1, N)),
+           np.empty((S_SERVE, M + 1)), np.empty((S_SERVE, M), bool)]
+    for s in range(S_SERVE):
+        for a, b in zip(out, bench_form_arrays(s)):
+            a[s] = b
+    return out
+
+
+def scenario_starts(S, R, n, seed, device="cuda"):
+    """The starts solve_scenarios draws from a generator seeded `seed`:
+    one (R, n) float32 draw a scenario, in scenario order."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.stack([torch.randn((R, n), generator=gen,
+                                    dtype=torch.float32, device=device)
+                        for _ in range(S)])
+
+
+def start_k1_sample(workdir):
+    """Start the count of K1's work on a sample of the serving grid: the
+    first timed solve's starts of the K1_SAMPLE scenarios, drawn here on
+    the card, go to a file, and a CPU process (`--k1-sample`) runs K1's
+    plain version on them while the phases before `scenarios` run."""
+    xs = scenario_starts(max(K1_SAMPLE) + 1, R_SERVE, N, 1)
+    path = os.path.join(workdir, "k1_sample.npz")
+    np.savez(path, xs=xs[list(K1_SAMPLE)].cpu().numpy())
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--k1-sample", path],
+        stdout=subprocess.PIPE, text=True)
+
+
+def k1_sample_counts(path):
+    """(run as `--k1-sample PATH`) K1's plain version in float32 on the
+    CPU on each sampled scenario's R_SERVE starts at the serving shape:
+    its restart-sweeps and probes, one JSON line."""
+    import torch
+    torch.set_num_threads(2)
+    sys.path.insert(0, REPO)
+    from qcqp_tpu_torch.kernels import cd_sweep_kernel as k1
+    from qcqp_tpu_torch.kernels.onevar_kernel import bisect_accept
+    xs = np.load(path)["xs"]
+    out = []
+    for j, s in enumerate(K1_SAMPLE):
+        P, q, r, is_eq = bench_form_arrays(s)
+        k1._phase1_loop.lane_sweeps = k1._phase2_loop.lane_sweeps = 0
+        bisect_accept.probes = 0
+        t0 = time.perf_counter()
+        k1.two_phase_sweeps_ref(
+            *(torch.tensor(a, dtype=torch.float32) for a in (P, q, r)),
+            tuple(int(i) for i in np.nonzero(is_eq)[0]),
+            torch.from_numpy(xs[j]), num_iters=SWEEPS)
+        out.append({"scenario": s, "E": int(is_eq.sum()),
+                    "lane_sweeps": k1._phase1_loop.lane_sweeps
+                    + k1._phase2_loop.lane_sweeps,
+                    "probes": int(bisect_accept.probes),
+                    "cpu_seconds": time.perf_counter() - t0})
+    print(json.dumps(out), flush=True)
+
+
+def _serving_example():
+    """(a) examples/scenario_serving.py at its own size on the card: bank
+    write (float64), forms_from_bank (float32 on the card),
+    solve_sdr_batch on its default float32 route, solve_scenarios (64
+    restarts, CD through K1)."""
+    import tempfile
+    import torch
+    from qcqp_tpu_torch import native
+    from qcqp_tpu_torch.kernels.cd_sweep_kernel import two_phase_sweeps
+    from qcqp_tpu_torch.parallel.scenarios import (forms_from_bank,
+                                                   solve_scenarios)
+    from qcqp_tpu_torch.solvers.sdp import solve_sdr_batch
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "instances.qcqp")
+        native.bank_write(path, *serving_example_arrays())
+        loaded = forms_from_bank(path)
+    if loaded.P.device.type != "cuda" or loaded.dtype != torch.float32:
+        raise AssertionError("forms_from_bank did not land on the card in "
+                             "float32")
+    fallbacks = solve_sdr_batch.fallbacks
+    ms_sdr, (_, bounds, rp, rd) = host_ms(
+        lambda: solve_sdr_batch(loaded, max_iters=4000, tol=1e-7))
+    two_phase_sweeps.launches = 0
+    ms_cd, (xs, fs, vs) = host_ms(lambda: solve_scenarios(
+        loaded, 64, torch.Generator(device="cuda").manual_seed(0)))
+    launches = two_phase_sweeps.launches
+    fs_, vs_, b_ = (t.double().cpu().numpy() for t in (fs, vs, bounds))
+    if launches != 1 or xs.shape != (S_EXAMPLE, N_EXAMPLE):
+        raise AssertionError(f"serving example: {launches} K1 launches, "
+                             f"xs {tuple(xs.shape)}")
+    if not ((vs_ < 1e-2).all() and (fs_ >= b_ - 1e-3).all()):
+        raise AssertionError(f"serving example: objectives {fs_}, "
+                             f"violations {vs_}, SDR bounds {b_}")
+    return {"S": S_EXAMPLE, "n": N_EXAMPLE, "m": M_EXAMPLE, "R": 64,
+            "sdr_ms": ms_sdr, "sdr_float64_resolves":
+                solve_sdr_batch.fallbacks - fallbacks,
+            "sdr_bounds": b_.tolist(),
+            "sdr_max_residual": float(torch.maximum(rp, rd).max()),
+            "cd_ms": ms_cd, "k1_launches": launches,
+            "best_f": fs_.tolist(), "best_viol": vs_.tolist()}
+
+
+def _per_scenario_routes(stacked):
+    """(c) improve=ADMM and improve=DCCP on the first S_ROUTES scenarios at
+    R_SERVE: each scenario equals solve_restarts on its form from the
+    generator after the draws of the scenarios before it, bit for bit;
+    K3 launches twice a scenario (its two phases), K4 once."""
+    import torch
+    import qcqp_tpu_torch as qt
+    from qcqp_tpu_torch.core import QCQPForm
+    from qcqp_tpu_torch.kernels.admm_kernel import admm_phase
+    from qcqp_tpu_torch.kernels.ccp_kernel import ccp_improve
+    from qcqp_tpu_torch.parallel.restarts import solve_restarts
+    from qcqp_tpu_torch.parallel.scenarios import scenario, solve_scenarios
+    sub = QCQPForm(*(a[:S_ROUTES] for a in stacked))
+    out = {}
+    for improve, kw, kernel, per in (
+            (qt.ADMM, dict(num_iters=ADMM_ITERS), admm_phase, 2),
+            (qt.DCCP, CCP_ROUTE_KW, ccp_improve, 1)):
+        def gen():
+            return torch.Generator(device="cuda").manual_seed(9)
+        kernel.launches = 0
+        ms, (xs, fs, vs) = host_ms(lambda: solve_scenarios(
+            sub, R_SERVE, gen(), improve=improve, **kw))
+        launches = kernel.launches
+        g, same = gen(), 0
+        for s in range(S_ROUTES):
+            x, f, v = solve_restarts(scenario(sub, s), R_SERVE, g,
+                                     improve=improve, **kw)
+            same += int(torch.equal(x, xs[s]) and torch.equal(f, fs[s])
+                        and torch.equal(v, vs[s]))
+        if same != S_ROUTES or launches != per * S_ROUTES:
+            raise AssertionError(
+                f"{improve} by scenario: {same} of {S_ROUTES} scenarios "
+                f"equal solve_restarts, {launches} launches")
+        out[improve] = {"S": S_ROUTES, "R": R_SERVE, **kw, "ms": ms,
+                        "launches": launches, "scenarios_identical": same,
+                        "best_f": fs.tolist(), "best_viol": vs.tolist()}
+    return out
+
+
+def phase_scenarios(sample, workdir):
+    """Scenario serving on the card (qcqp_tpu_torch/parallel/scenarios.py):
+    (a) the serving example at its own size; (b) S_SERVE bench forms as a
+    float64 bank, loaded back in two halves, 3 timed solve_scenarios (one
+    K1 launch each) after a warm-up, then K1's stacked launch alone on the
+    first timed solve's starts against the loop of S_SERVE single-form
+    launches, every lane bit for bit, with both times and the bound from
+    the sampled counts; (c) ADMM and DCCP by scenario against
+    solve_restarts."""
+    import torch
+    from qcqp_tpu_torch import native
+    from qcqp_tpu_torch.core import QCQPForm
+    from qcqp_tpu_torch.kernels.cd_sweep_kernel import two_phase_sweeps
+    from qcqp_tpu_torch.parallel.restarts import best_point
+    from qcqp_tpu_torch.parallel.scenarios import (forms_from_bank,
+                                                   scenario, solve_scenarios)
+    example = _serving_example()
+
+    arrays = serving_bank_arrays()
+    path = os.path.join(workdir, "serving.qcqp")
+    t0 = time.perf_counter()
+    native.bank_write(path, *arrays)
+    write_s = time.perf_counter() - t0
+    mb = os.path.getsize(path) / 1e6
+    half = S_SERVE // 2
+    load_s, halves = host_ms(lambda: [forms_from_bank(path, 0, half),
+                                      forms_from_bank(path, half)])
+    load_s /= 1e3
+    os.unlink(path)
+    stacked = QCQPForm(*(torch.cat(pair) for pair in zip(*halves)))
+    del arrays, halves
+    if stacked.P.shape != (S_SERVE, M + 1, N, N):
+        raise AssertionError(f"bank loaded as {tuple(stacked.P.shape)}")
+
+    def solve(seed):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return solve_scenarios(stacked, R_SERVE, gen, num_iters=SWEEPS)
+    solve(0)                                            # warm-up
+    two_phase_sweeps.launches = 0
+    times, results = [], []
+    for seed in range(1, 1 + SERVE_REPEATS):
+        ms, res = host_ms(lambda: solve(seed))
+        times.append(ms)
+        results.append(res)
+    launches = two_phase_sweeps.launches
+    for xs, fs, vs in results:
+        if not (xs.shape == (S_SERVE, N) and torch.isfinite(xs).all()
+                and torch.isfinite(fs).all() and torch.isfinite(vs).all()):
+            raise AssertionError("solve_scenarios returned non-finite "
+                                 "points")
+    if launches != SERVE_REPEATS:
+        raise AssertionError(f"{launches} K1 launches in {SERVE_REPEATS} "
+                             "scenario solves")
+
+    # K1 alone on the first timed solve's starts: the stacked launch
+    # against one launch a scenario
+    xs = scenario_starts(S_SERVE, R_SERVE, N, 1)
+    eqs = [tuple(int(i) for i in np.nonzero(row)[0])
+           for row in stacked.is_eq.cpu().numpy()]
+    P, q, r = stacked.P, stacked.q, stacked.r
+
+    def stacked_launch():
+        return two_phase_sweeps(P, q, r, eqs, xs, num_iters=SWEEPS)
+
+    def loop():
+        return torch.stack([two_phase_sweeps(P[s], q[s], r[s], eqs[s], xs[s],
+                                             num_iters=SWEEPS)
+                            for s in range(S_SERVE)])
+    ms_stack_a, x_stack = host_ms(stacked_launch)
+    ms_loop, x_loop = host_ms(loop)
+    ms_stack_b, _ = host_ms(stacked_launch)
+    a, b = x_stack.cpu().numpy(), x_loop.cpu().numpy()
+    lanes_same = int((a.view(np.int32) == b.view(np.int32)).all(axis=2)
+                     .sum())
+    if lanes_same != S_SERVE * R_SERVE or not np.isfinite(a).all():
+        raise AssertionError(
+            f"K1's stacked launch equals the single-form launches on "
+            f"{lanes_same} of {S_SERVE * R_SERVE} lanes")
+    best = [best_point(scenario(stacked, s), x_stack[s])
+            for s in range(S_SERVE)]
+    if not all(torch.equal(torch.stack(col), w)
+               for col, w in zip(zip(*best), results[0])):
+        raise AssertionError("K1's stacked launch on the first solve's "
+                             "starts does not give that solve's best points")
+
+    report = sample.communicate(timeout=600)[0]
+    if sample.returncode != 0:
+        raise AssertionError(f"the K1 sample process exited "
+                             f"{sample.returncode}")
+    counts = json.loads(report.splitlines()[-1])
+    ops = sum(c["lane_sweeps"] * ((M + 1) * (2 * N * N + 2 * N)
+                                  + N * 2 * (M + 1) * N)
+              + c["probes"] * (M + c["E"]) * C_ROW for c in counts)
+    ops *= S_SERVE / len(counts)
+    e_max = max(len(e) for e in eqs)
+    nbytes = 4 * (S_SERVE * ((M + 1) * N * N + (M + 1) * N + (M + 1) + M
+                             + e_max + 1) + 2 * S_SERVE * R_SERVE * N)
+    b = bound(ops, nbytes)
+
+    fs = torch.stack([res[1] for res in results]).double().cpu().numpy()
+    vs = torch.stack([res[2] for res in results]).double().cpu().numpy()
+    routes = _per_scenario_routes(stacked)
+    ms_solve = float(np.median(times))
+    emit({"phase": "scenarios", "example": example,
+          "serving": {
+              "S": S_SERVE, "n": N, "m": M, "R": R_SERVE, "sweeps": SWEEPS,
+              "E_by_scenario": [len(e) for e in eqs],
+              "bank_mb": mb, "write_s": write_s, "write_mb_s": mb / write_s,
+              "load_s": load_s, "load_mb_s": mb / load_s,
+              "ms_per_solve": times,
+              "scenario_restarts_per_s": S_SERVE * R_SERVE / ms_solve * 1e3,
+              "k1_launches": launches,
+              "best_f": {"min": float(fs[0].min()),
+                         "median": float(np.median(fs[0])),
+                         "max": float(fs[0].max())},
+              "best_viol": {"min": float(vs[0].min()),
+                            "median": float(np.median(vs[0])),
+                            "max": float(vs[0].max())},
+              "share_feasible": float((vs[0] < 1e-2).mean()),
+              "k1_stacked_ms": [ms_stack_a, ms_stack_b],
+              "k1_loop_ms": ms_loop, "lanes_identical": lanes_same,
+              "k1_sample": counts,
+              "bound_from": f"K1's plain version in float32 on the CPU, "
+                            f"scenarios {list(K1_SAMPLE)} of the first "
+                            f"timed solve's starts ({R_SERVE} lanes each), "
+                            f"scaled by {S_SERVE} / {len(counts)}",
+              **b},
+          "per_scenario_routes": routes})
+    return {"launches": launches, "ms": (ms_stack_a + ms_stack_b) / 2,
+            "ms_loop": ms_loop, "ms_per_solve": ms_solve,
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+            "bound_from": "sampled: K1's plain version on the CPU, "
+                          f"{len(counts)} of {S_SERVE} scenarios, scaled",
+            "shape": f"S={S_SERVE}, n={N}, m={M}, R={R_SERVE} a scenario "
+                     f"({S_SERVE * R_SERVE} lanes), {SWEEPS} sweeps, "
+                     "E per scenario"}
+
+
 def _device_ms_by_kernel(prof):
     """Device time (ms) and count per kernel name, from the profiler's
     device-side events only."""
@@ -2369,17 +2699,35 @@ def plain_runs(arrays):
 
 def main():
     import argparse
-    import threading
+    import tempfile
     import torch
     args = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     args.add_argument("--profile", action="store_true",
                       help="add the profiler breakdown per route and K1's "
                            "time over R")
+    args.add_argument("--k1-sample", metavar="PATH",
+                      help="(internal) count K1's plain version on the "
+                           "sampled starts in PATH, on the CPU")
     args = args.parse_args()
+    if args.k1_sample:
+        return k1_sample_counts(args.k1_sample)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device")
     sys.path.insert(0, REPO)
     import qcqp_tpu_torch  # noqa: F401  (fails outside a checkout)
+    with tempfile.TemporaryDirectory() as workdir:
+        sample = start_k1_sample(workdir)
+        try:
+            run_phases(args, sample, workdir)
+        finally:
+            if sample.poll() is None:
+                sample.kill()
+            sample.wait()
+
+
+def run_phases(args, sample, workdir):
+    import threading
+    import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2419,6 +2767,7 @@ def main():
                       sdr["acc16"])
     spectral = timed("spectral", phase_spectral, sdr_bound)
     timed("nlp_path", phase_nlp_path, arrays)
+    scen = timed("scenarios", phase_scenarios, sample, workdir)
     if args.profile:
         timed("profile", phase_profile, arrays)
     if "jax" in sys.modules:
@@ -2439,7 +2788,14 @@ def main():
          "library_ms": None,
          "shape": f"n={N}, m={M}, R={R_MAIN}, {SWEEPS} sweeps",
          "ms_main_path": ms_main,
-         "launches_spectral_cd": spectral["k1_launches"]},
+         "launches_spectral_cd": spectral["k1_launches"],
+         "launches_scenarios": scen["launches"],
+         "ms_scenarios": scen["ms"], "ms_scenarios_loop": scen["ms_loop"],
+         "shape_scenarios": scen["shape"],
+         "bound_ms_scenarios": scen["bound_ms"],
+         "bound_by_scenarios": scen["bound_by"],
+         "bound_scenarios_from": scen["bound_from"],
+         "ms_per_scenario_solve": scen["ms_per_solve"]},
         {"name": "K2 phase1_coordinate_update", "route": "cuda",
          "source": "qcqp_tpu_torch/csrc/onevar_phase1.cu",
          "replaces": "qcqp_tpu/kernels/onevar_pallas.py:502",

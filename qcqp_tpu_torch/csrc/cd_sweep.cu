@@ -2,11 +2,14 @@
 // one launch.
 //
 // Replaces qcqp_tpu/kernels/cd_sweep_pallas.py two_phase_sweeps /
-// phase1_sweeps (`_two_phase_kernel`, `_phase1_sweep_kernel`).  Contract:
-// P as Pt (n, n, m+1) with Pt[a, b, i] = P[i, a, b] (P symmetric), q as qt
-// (n, m+1), r (m+1,), the static equality pattern as a row mask eqmask (m,)
-// and its indices eq_idx (E,); x (R, n) is the restart batch, updated in
-// place.
+// phase1_sweeps (`_two_phase_kernel`, `_phase1_sweep_kernel`), and the
+// batched call that jax.vmap makes of them over a scenario axis
+// (qcqp_tpu/parallel/scenarios.py).  Contract: S stacked forms of one
+// shape, each P as Pt (n, n, m+1) with Pt[a, b, i] = P[i, a, b] (P
+// symmetric), q as qt (n, m+1), r (m+1,), its static equality pattern as a
+// row mask eqmask (m,) and its indices eq_idx (E_max,), of which the first
+// e_cnt are used; x (S, R, n) is the restart batch, updated in place.  One
+// form is the case S = 1.
 //
 // Per restart, in the order of the JAX code:
 //   phase 1  sweeps while viol >= viol_tol and the last sweep changed
@@ -45,6 +48,18 @@
 //     5(m+E) floats; 3.3 KB at n = 100, m = 50, E = 22).  No global scratch.
 // P is read through Pt, so a warp's 32 rows of one (k, j) are 32 adjacent
 // words; at the bench shape all of Pt (2 MB) stays in the 50 MB L2.
+// Scenarios: blockIdx.y is the scenario and each warp offsets into its own
+// scenario's form, so a lane's arithmetic is the one of a single-form
+// launch and the bits are those of S separate launches (a scenario's
+// ragged last block drops whole warps).  The offset pointers and the
+// scenario's E live in registers, where a single form's come from the
+// kernel's parameters: at the 48-register cap ptxas spills more (216
+// against 136 bytes of spill loads), and a first design that kept the
+// offsets in every launch slowed the single-form launch by 5% on an
+// H100.  So S = 1 runs the same kernel instantiated with the offsets
+// folded away (kStacked false), whose code ptxas reports as the
+// single-form kernel's.  The scenarios' forms stream through L2 a few at
+// a time (S = 132 forms of 2 MB do not fit in it together).
 //
 // What bounds it on the H100: latency, not the float rate.  Each restart
 // reads Pt from L2 twice a sweep (the F refresh and the n restrictions:
@@ -314,19 +329,23 @@ struct WarpRestart {
   }
 };
 
+template <bool kStacked>
 __global__ void __launch_bounds__(32 * kMaxWarps, 10)
 cd_sweep_kernel(const float* Pt, const float* qt, const float* r,
-                const float* eqmask, const int* eq_idx, int e, float* x,
-                int n, int m, int R, int num_iters, float tol,
-                float viol_tol, int n_bisect, int phase1, int phase2,
-                int warp_floats) {
+                const float* eqmask, const int* eq_idx, const int* e_cnt,
+                int e_max, float* x, int n, int m, int R, int num_iters,
+                float tol, float viol_tol, int n_bisect, int phase1,
+                int phase2, int warp_floats) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int rid = blockIdx.x * (blockDim.x >> 5) + warp;
   if (rid >= R) return;  // a whole warp
   const int k1 = m + 1;
+  const size_t sc = kStacked ? blockIdx.y : 0;  // the warp's scenario
+  const int e = kStacked ? e_cnt[sc] : e_max;    // e_cnt[0] when S = 1
   float* s = smem + (size_t)warp * warp_floats;
-  WarpRestart W{Pt, qt, r, eqmask, eq_idx, n, m, e, k1, lane, tol,
+  WarpRestart W{Pt + sc * n * n * k1, qt + sc * n * k1, r + sc * k1,
+                eqmask + sc * m, eq_idx + sc * e_max, n, m, e, k1, lane, tol,
                 s,
                 s + n,
                 s + 3 * n,
@@ -335,7 +354,7 @@ cd_sweep_kernel(const float* Pt, const float* qt, const float* r,
                 s + 3 * n + 3 * k1,
                 RowStore{s + 3 * n + 4 * k1, m + e, 1},
                 0};
-  float* xg = x + (size_t)rid * n;
+  float* xg = x + (sc * R + rid) * n;
   for (int j = lane; j < n; j += 32) W.x[j] = xg[j];
   if (phase1) W.phase1(num_iters, viol_tol, n_bisect);
   if (phase2) W.phase2(num_iters, viol_tol);
@@ -345,31 +364,36 @@ cd_sweep_kernel(const float* Pt, const float* qt, const float* r,
 
 }  // namespace
 
-// `warps` restarts a block, `warp_floats` (>= 3n + 4(m+1) + 5(m+E)) shared
-// floats a warp; the wrapper chooses both (cd_sweep_kernel.launch_geometry).
-// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
-// a geometry the kernel does not take.
+// S stacked forms (Pt, qt, r, eqmask at strides n n (m+1), n (m+1), m+1
+// and m; eq_idx at stride e_max, e_cnt (S,) of them used, each <= e_max,
+// and e_cnt[0] == e_max when S = 1), x (S, R, n), S <= 65,535 (the grid's
+// y).  `warps` restarts a block, `warp_floats` (>= 3n + 4(m+1) +
+// 5(m+e_max)) shared floats a warp; the wrapper chooses both
+// (cd_sweep_kernel.launch_geometry at E_max and S R restarts).  Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
+// geometry the kernel does not take.
 extern "C" int qk_cd_sweeps(const float* Pt, const float* qt, const float* r,
-                            const float* eqmask, const int* eq_idx, int e,
-                            float* x, int n, int m, int R, int num_iters,
-                            float tol, float viol_tol, int n_bisect,
-                            int phase1, int phase2, int warps,
-                            int warp_floats, void* stream) {
-  if (warps < 1 || warps > kMaxWarps ||
-      warp_floats < 3 * n + 4 * (m + 1) + 5 * (m + e))
+                            const float* eqmask, const int* eq_idx,
+                            const int* e_cnt, int e_max, float* x, int n,
+                            int m, int S, int R, int num_iters, float tol,
+                            float viol_tol, int n_bisect, int phase1,
+                            int phase2, int warps, int warp_floats,
+                            void* stream) {
+  if (warps < 1 || warps > kMaxWarps || S < 0 || S > 65535 || R < 0 ||
+      warp_floats < 3 * n + 4 * (m + 1) + 5 * (m + e_max))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (R == 0) return 0;
+  if (S == 0 || R == 0) return 0;
   const size_t smem = (size_t)warps * warp_floats * sizeof(float);
+  auto* kernel = S == 1 ? cd_sweep_kernel<false> : cd_sweep_kernel<true>;
   if (smem > 48 * 1024) {  // above 48 KB only after opting in
     const cudaError_t err = cudaFuncSetAttribute(
-        cd_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const int blocks = (R + warps - 1) / warps;
+  const dim3 grid((R + warps - 1) / warps, S);  // a row of blocks a scenario
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cd_sweep_kernel<<<blocks, 32 * warps, smem, s>>>(
-      Pt, qt, r, eqmask, eq_idx, e, x, n, m, R, num_iters, tol, viol_tol,
-      n_bisect, phase1, phase2, warp_floats);
+  kernel<<<grid, 32 * warps, smem, s>>>(
+      Pt, qt, r, eqmask, eq_idx, e_cnt, e_max, x, n, m, R, num_iters, tol,
+      viol_tol, n_bisect, phase1, phase2, warp_floats);
   return static_cast<int>(cudaGetLastError());
 }

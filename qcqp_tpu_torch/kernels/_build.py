@@ -45,8 +45,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "qk_phase1_update": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I,
                          _I, _F, _F, _I, _I, _I, _I, _P],
-    "qk_cd_sweeps": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _F, _F, _I,
-                     _I, _I, _I, _I, _P],
+    "qk_cd_sweeps": [_P] * 6 + [_I, _P] + [_I] * 5 + [_F, _F] + [_I] * 5
+                    + [_P],
     "qk_admm_phase": [_P] * 13 + [_I] * 5 + [_F] * 5 + [_I] * 4 + [_P],
     "qk_ccp_improve": [_P] * 17 + [_I] * 8 + [_F] * 8 + [_P],
     "qk_eigh_jacobi": [_P] * 6 + [_I] * 7 + [_P],

@@ -12,6 +12,14 @@ Tensor contract (as in the JAX package): P (m+1, n, n) symmetric, q
 Any R: the JAX wrapper pads R to the 128-lane tile; the CUDA kernel runs
 one warp per restart, and its ragged last block has fewer warps.
 
+A stack of S forms of one shape (the scenario axis that jax.vmap gives the
+Pallas call in qcqp_tpu/parallel/scenarios.py) goes in the same call: P
+(S, m+1, n, n), q (S, m+1, n), r (S, m+1), eq_idx a sequence of S tuples
+(each scenario its own pattern, E may differ), xs (S, R, n).  The kernel
+runs the S x R restarts in one launch, each warp on its own scenario's
+form, so its lanes equal those of S single-form launches bit for bit; the
+plain version runs the stack scenario by scenario.
+
 Per-lane semantics.  The Pallas loops run while any lane of a 128-restart
 tile is alive.  A lane that has stopped is left unchanged by the loop
 bodies, except that phase 1 keeps re-deriving a stopped lane's violation
@@ -24,6 +32,7 @@ version runs each sweep only on the lanes that are still alive.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import _build
@@ -226,10 +235,26 @@ _phase1_loop.lane_sweeps = 0
 _phase2_loop.lane_sweeps = 0
 
 
+def _per_scenario(fn, P, q, r, eq_idx, xs, *args):
+    """fn on each form of a stack (P (S, m+1, n, n), eq_idx S tuples, xs
+    (S, R, n)) in turn, the results stacked."""
+    if len(eq_idx) != P.shape[0]:
+        raise ValueError(f"a stack of {P.shape[0]} forms needs as many "
+                         f"equality patterns, got {len(eq_idx)}")
+    if P.shape[0] == 0:
+        return xs.clone()
+    return torch.stack([fn(P[s], q[s], r[s], eq_idx[s], xs[s], *args)
+                        for s in range(P.shape[0])])
+
+
 def two_phase_sweeps_ref(P, q, r, eq_idx, xs, num_iters=1000, viol_tol=1e-2,
                          tol=1e-4, n_bisect=40, phase1=True):
     """Plain PyTorch version of K1 (two-phase), in the inputs' dtype.
-    xs (R, n) -> (R, n)."""
+    xs (R, n) -> (R, n); a stack (S, R, n) -> (S, R, n), scenario by
+    scenario."""
+    if P.dim() == 4:
+        return _per_scenario(two_phase_sweeps_ref, P, q, r, eq_idx, xs,
+                             num_iters, viol_tol, tol, n_bisect, phase1)
     ctx = _Ctx(P, q, r, eq_idx)
     x = xs.T.clone()
     if phase1:
@@ -240,7 +265,11 @@ def two_phase_sweeps_ref(P, q, r, eq_idx, xs, num_iters=1000, viol_tol=1e-2,
 
 def phase1_sweeps_ref(P, q, r, eq_idx, xs, num_iters=1000, viol_tol=1e-2,
                       tol=1e-4, n_bisect=40):
-    """Plain PyTorch version of K1 with phase 2 off."""
+    """Plain PyTorch version of K1 with phase 2 off (a stack as in
+    two_phase_sweeps_ref)."""
+    if P.dim() == 4:
+        return _per_scenario(phase1_sweeps_ref, P, q, r, eq_idx, xs,
+                             num_iters, viol_tol, tol, n_bisect)
     ctx = _Ctx(P, q, r, eq_idx)
     x = xs.T.clone()
     _phase1_loop(ctx, x, int(num_iters), tol, viol_tol, int(n_bisect))
@@ -250,15 +279,17 @@ def phase1_sweeps_ref(P, q, r, eq_idx, xs, num_iters=1000, viol_tol=1e-2,
 # K1's launch geometry (csrc/cd_sweep.cu): one warp per restart, each with
 # its state in its slice of the block's dynamic shared memory.
 MAX_WARPS = 4                  # restarts a block (kMaxWarps in the source)
+MAX_SCENARIOS = 65535          # forms a launch (the grid's y dimension)
 
 
 def launch_geometry(n, m, e, R=None, sms=None):
     """(warps a block, shared floats a warp, shared bytes a block) for K1
-    at n, m, E: a warp holds x (n), the warm brackets (2n), F, t2, t1, t0
-    (m+1 each) and five canonical fields of the m+E rows, rounded up to 16
-    bytes.  Up to MAX_WARPS warps within SMEM_BLOCK_MAX; given R and the
-    card's SM count, fewer, so that a small batch spreads over the SMs.
-    Raises ValueError when one warp's state exceeds SMEM_BLOCK_MAX."""
+    at n, m, E (for a stack: its largest E, and R = S x R restarts): a
+    warp holds x (n), the warm brackets (2n), F, t2, t1, t0 (m+1 each) and
+    five canonical fields of the m+E rows, rounded up to 16 bytes.  Up to
+    MAX_WARPS warps within SMEM_BLOCK_MAX; given R and the card's SM
+    count, fewer, so that a small batch spreads over the SMs.  Raises
+    ValueError when one warp's state exceeds SMEM_BLOCK_MAX."""
     warp_floats = -(-(3 * n + 4 * (m + 1) + 5 * (m + e)) // 4) * 4
     per_warp = 4 * warp_floats
     if per_warp > SMEM_BLOCK_MAX:
@@ -273,49 +304,77 @@ def launch_geometry(n, m, e, R=None, sms=None):
 
 
 def lane_layout(P, q):
-    """P (m+1, n, n) and q (m+1, n) as K1 reads them: Pt (n, n, m+1) with
-    Pt[a, b, i] = P[i, a, b] and qt (n, m+1), so that the 32 lanes of a
-    warp, one row each, read 32 adjacent words.  A layout only."""
-    return P.permute(1, 2, 0).contiguous(), q.t().contiguous()
+    """P (..., m+1, n, n) and q (..., m+1, n) as K1 reads them, in one
+    pass for a stack: Pt (..., n, n, m+1) with Pt[..., a, b, i] =
+    P[..., i, a, b] and qt (..., n, m+1), so that the 32 lanes of a warp,
+    one row each, read 32 adjacent words.  A layout only."""
+    return P.movedim(-3, -1).contiguous(), q.transpose(-1, -2).contiguous()
+
+
+def eq_arrays(eq_idx, m):
+    """The stack's equality patterns as K1 reads them: the row masks
+    (S, m) as float32, the index lists (S, E_max) as int32 padded with 0,
+    and the counts (S,) as int32, on the host.  Each index must lie in
+    [0, m)."""
+    eqs = [tuple(int(i) for i in e) for e in eq_idx]
+    e_max = max((len(e) for e in eqs), default=0)
+    mask = np.zeros((len(eqs), m), np.float32)
+    idx = np.zeros((len(eqs), e_max), np.int32)
+    for s, e in enumerate(eqs):
+        if any(i < 0 or i >= m for i in e):
+            raise ValueError(f"cd_sweeps: equality rows {e} outside [0, {m})")
+        mask[s, list(e)] = 1.0
+        idx[s, :len(e)] = e
+    return mask, idx, np.array([len(e) for e in eqs], np.int32)
 
 
 def _launch(P, q, r, eq_idx, xs, num_iters, viol_tol, tol, n_bisect,
             phase1, phase2):
-    k1, n = P.shape[0], P.shape[-1]
+    single = P.dim() == 3
+    if single:
+        P, q, r, xs, eq_idx = P[None], q[None], r[None], xs[None], [eq_idx]
+    S, k1, n = P.shape[0], P.shape[1], P.shape[-1]
     m = k1 - 1
-    R = xs.shape[0]
+    R = xs.shape[-2] if xs.dim() == 3 else -1
     _check_cuda("cd_sweeps", [P, q, r, xs],
-                [(k1, n, n), (k1, n), (k1,), (R, n)])
-    eq_idx = tuple(int(i) for i in eq_idx)
-    e = len(eq_idx)
+                [(S, k1, n, n), (S, k1, n), (S, k1), (S, R, n)])
+    if len(eq_idx) != S:
+        raise ValueError(f"cd_sweeps: a stack of {S} forms needs as many "
+                         f"equality patterns, got {len(eq_idx)}")
+    if S > MAX_SCENARIOS:
+        raise ValueError(f"cd_sweeps: {S} scenarios in one launch, above "
+                         f"the grid's {MAX_SCENARIOS}")
+    mask, idx, counts = eq_arrays(eq_idx, m)
+    e_max = idx.shape[1]
     dev = P.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    warps, warp_floats, _ = launch_geometry(n, m, e, R, sms)
-    eq_t = torch.tensor(eq_idx if e else [0], dtype=torch.int32, device=dev)
-    eqmask = torch.zeros(max(m, 1), dtype=torch.float32, device=dev)
-    if e:
-        eqmask[eq_t.long()] = 1.0
+    warps, warp_floats, _ = launch_geometry(n, m, e_max, S * R, sms)
+    mask, idx, counts = (torch.from_numpy(a.reshape(-1) if a.size else
+                                          np.zeros(1, a.dtype)).to(dev)
+                         for a in (mask, idx, counts))
     Pt, qt = lane_layout(P, q)
-    x = xs.clone()                                   # (R, n), in/out
+    x = xs.clone()                                   # (S, R, n), in/out
     lib = _build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.qk_cd_sweeps(Pt.data_ptr(), qt.data_ptr(), r.data_ptr(),
-                          eqmask.data_ptr(), eq_t.data_ptr(), e,
-                          x.data_ptr(), n, m, R, int(num_iters), float(tol),
-                          float(viol_tol), int(n_bisect), int(bool(phase1)),
-                          int(bool(phase2)), warps, warp_floats, stream)
+                          mask.data_ptr(), idx.data_ptr(), counts.data_ptr(),
+                          e_max, x.data_ptr(), n, m, S, R, int(num_iters),
+                          float(tol), float(viol_tol), int(n_bisect),
+                          int(bool(phase1)), int(bool(phase2)), warps,
+                          warp_floats, stream)
     _build.check(rc, "qk_cd_sweeps")
-    return x
+    return x[0] if single else x
 
 
 def two_phase_sweeps(P, q, r, eq_idx, xs, num_iters=1000, viol_tol=1e-2,
                      tol=1e-4, n_bisect=40, phase1=True):
     """The full two-phase CD improve for a restart batch in one launch
     (reference: qcqp/qcqp.py:181-192, the phase-2 gate of qcqp.py:189-190
-    applied per lane).  phase1=False skips straight to phase 2.
+    applied per lane).  phase1=False skips straight to phase 2.  A stack
+    of forms with xs (S, R, n) is one launch too (module docstring).
 
     CPU tensors run the plain version; CUDA tensors launch K1 (float32
-    only, counted in `two_phase_sweeps.launches`)."""
+    only, counted in `two_phase_sweeps.launches`, one a launch)."""
     if not xs.is_cuda:
         return two_phase_sweeps_ref(P, q, r, eq_idx, xs, num_iters, viol_tol,
                                     tol, n_bisect, phase1)

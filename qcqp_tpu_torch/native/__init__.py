@@ -1,12 +1,13 @@
-"""ctypes bindings for the host-side canonicalization kernels
-(JAX counterpart: qcqp_tpu/native/__init__.py, square_accumulate and
-mul_accumulate only; the problem-bank IO waits for the scenarios slice).
+"""ctypes bindings for the host-side canonicalization kernels and the
+threaded problem-bank IO (JAX counterpart: qcqp_tpu/native/__init__.py).
 
-The C++ source is the JAX package's own `qcqp_tpu/native/canon.cc`, read by
-path (importing `qcqp_tpu` would import JAX) and built with g++ at first use
-into the port's build directory, keyed by a hash of the source.  Where g++
-is missing or fails, the numpy path computes the same sums: this is
-host-side canonicalization, not device work.
+The C++ source is the port's own copy, `canon.cc` beside this file (the
+JAX package's `qcqp_tpu/native/canon.cc` as it was copied), built with g++
+at first use into the port's build directory, keyed by a hash of the
+source.  Where g++ is missing or fails, numpy computes the same sums and
+the bank goes through an `.npz` file, as in the JAX package: this is host
+work, not device work.  A bank written by either package loads in the
+other, natively or through `.npz`.
 """
 
 from __future__ import annotations
@@ -16,13 +17,13 @@ import hashlib
 import os
 import subprocess
 import tempfile
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(os.path.dirname(_PKG), "qcqp_tpu", "native", "canon.cc")
-_BUILD_DIR = os.path.join(_PKG, "build")
+_DIR = os.path.dirname(os.path.abspath(__file__))
+_SRC = os.path.join(_DIR, "canon.cc")
+_BUILD_DIR = os.path.join(os.path.dirname(_DIR), "build")
 
 
 class _Lib:
@@ -62,6 +63,7 @@ def _load() -> Optional[ctypes.CDLL]:
         return None
     lib = ctypes.CDLL(path)
     dp = ctypes.POINTER(ctypes.c_double)
+    i8p = ctypes.POINTER(ctypes.c_int8)
     i64 = ctypes.c_int64
     lib.qn_square_accumulate.argtypes = [dp, dp, i64, i64, ctypes.c_double,
                                          dp, dp, dp]
@@ -69,12 +71,29 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.qn_mul_accumulate.argtypes = [dp, dp, dp, dp, i64, i64,
                                       ctypes.c_double, dp, dp, dp]
     lib.qn_mul_accumulate.restype = None
+    lib.qn_bank_write.restype = i64
+    lib.qn_bank_write.argtypes = [ctypes.c_char_p, i64, i64, i64, dp, dp, dp,
+                                  i8p]
+    lib.qn_bank_info.restype = i64
+    lib.qn_bank_info.argtypes = [ctypes.c_char_p, ctypes.POINTER(i64),
+                                 ctypes.POINTER(i64), ctypes.POINTER(i64)]
+    lib.qn_bank_load.restype = i64
+    lib.qn_bank_load.argtypes = [ctypes.c_char_p, i64, i64, dp, dp, dp, i8p]
     _Lib.lib = lib
     return lib
 
 
+def available() -> bool:
+    """Whether the native library is built (or builds now)."""
+    return _load() is not None
+
+
 def _dp(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+
+
+def _i8p(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int8))
 
 
 def _check_out(P, q, r, s, n):
@@ -119,3 +138,69 @@ def mul_accumulate(Ca, da, Cb, db, w, P, q, r) -> None:
                     + Cb[:, :, None] * Ca[:, None, :])
     q += w * (da[:, None] * Cb + db[:, None] * Ca)
     r += w * da * db
+
+
+# ---------------------------------------------------------------------------
+# Problem-bank IO (with numpy .npz fallback).  Layout (canon.cc): a header
+# {magic, version, count, n, m} of int64, then per instance P (m+1, n, n),
+# q (m+1, n), r (m+1,) in float64 and is_eq (m,) in int8.
+# ---------------------------------------------------------------------------
+
+def _npz(path: str) -> str:
+    return path if path.endswith(".npz") else path + ".npz"
+
+
+def bank_write(path: str, P: np.ndarray, q: np.ndarray, r: np.ndarray,
+               is_eq: np.ndarray) -> None:
+    """Write a batch of instances: P (count, m+1, n, n), q, r, is_eq.
+    Without the library, an .npz file at `path` (+ ".npz")."""
+    count, k, n, _ = P.shape
+    lib = _load()
+    if lib is None:
+        np.savez(path, P=P, q=q, r=r, is_eq=is_eq)
+        return
+    P = np.ascontiguousarray(P, np.float64)
+    q = np.ascontiguousarray(q, np.float64)
+    r = np.ascontiguousarray(r, np.float64)
+    eq = np.ascontiguousarray(np.asarray(is_eq).astype(np.int8))
+    rc = lib.qn_bank_write(path.encode(), count, n, k - 1, _dp(P), _dp(q),
+                           _dp(r), _i8p(eq))
+    if rc != 0:
+        raise IOError(f"qn_bank_write failed: {rc}")
+
+
+def bank_info(path: str) -> Tuple[int, int, int]:
+    """(count, n, m) of a bank."""
+    lib = _load()
+    if lib is None:
+        with np.load(_npz(path)) as z:
+            c, k, n, _ = z["P"].shape
+            return c, n, k - 1
+    c, n, m = ctypes.c_int64(), ctypes.c_int64(), ctypes.c_int64()
+    rc = lib.qn_bank_info(path.encode(), ctypes.byref(c), ctypes.byref(n),
+                          ctypes.byref(m))
+    if rc != 0:
+        raise IOError(f"qn_bank_info failed: {rc}")
+    return c.value, n.value, m.value
+
+
+def bank_load(path: str, start: int, batch: int):
+    """Instances [start, start+batch) as stacked host arrays (P, q, r in
+    float64, is_eq bool), read by up to 8 threads."""
+    lib = _load()
+    if lib is None:
+        with np.load(_npz(path)) as z:
+            sl = slice(start, start + batch)
+            return (z["P"][sl], z["q"][sl], z["r"][sl],
+                    z["is_eq"][sl].astype(bool))
+    _, n, m = bank_info(path)
+    k = m + 1
+    P = np.empty((batch, k, n, n), np.float64)
+    q = np.empty((batch, k, n), np.float64)
+    r = np.empty((batch, k), np.float64)
+    eq = np.empty((batch, m), np.int8)
+    rc = lib.qn_bank_load(path.encode(), start, batch, _dp(P), _dp(q), _dp(r),
+                          _i8p(eq))
+    if rc != 0:
+        raise IOError(f"qn_bank_load failed: {rc}")
+    return P, q, r, eq.astype(bool)

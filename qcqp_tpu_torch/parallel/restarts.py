@@ -162,6 +162,26 @@ def improve_chain(form: QCQPForm, xs: torch.Tensor,
     return xs
 
 
+def fused_setups(form: QCQPForm, improve: Union[str, List[str]],
+                 kwargs: dict) -> dict:
+    """kwargs with the one-time set-ups of the fused ADMM and CCP
+    (kernels/admm_kernel.ADMMFusedData, kernels/ccp_kernel.CCPFusedData)
+    added for `form`, where the chain runs them through the kernels and
+    the caller passed none."""
+    methods = improve if isinstance(improve, list) else [improve]
+    kwargs = dict(kwargs)
+    if (kwargs.get("use_fused", False) and s.ADMM in methods
+            and "admm_data" not in kwargs and admm_kernel.takes(form)):
+        kwargs["admm_data"] = admm_kernel.ADMMFusedData(
+            form, kwargs.get("rho", None))
+    if (kwargs.get("use_fused", False) and s.DCCP in methods
+            and "ccp_data" not in kwargs
+            and not kwargs.get("use_eigen_split", False)
+            and ccp_kernel.takes(form)):
+        kwargs["ccp_data"] = ccp_kernel.CCPFusedData(form)
+    return kwargs
+
+
 def solve_restarts(form: QCQPForm, num_restarts: int,
                    generator: Optional[torch.Generator] = None,
                    suggest: str = s.RANDOM,
@@ -181,21 +201,12 @@ def solve_restarts(form: QCQPForm, num_restarts: int,
     if mesh is not None:
         raise NotImplementedError(
             "solve_restarts(mesh=...) is not ported to qcqp_tpu_torch yet: "
-            "it comes with the scenarios + distributed module")
+            "it comes with the distributed module")
     if generator is None:
         generator = torch.Generator(device=form.device).manual_seed(0)
     if "use_fused" not in kwargs and _fused_default(form):
         kwargs["use_fused"] = True
-    methods = improve if isinstance(improve, list) else [improve]
-    if (kwargs.get("use_fused", False) and s.ADMM in methods
-            and "admm_data" not in kwargs and admm_kernel.takes(form)):
-        kwargs["admm_data"] = admm_kernel.ADMMFusedData(
-            form, kwargs.get("rho", None))
-    if (kwargs.get("use_fused", False) and s.DCCP in methods
-            and "ccp_data" not in kwargs
-            and not kwargs.get("use_eigen_split", False)
-            and ccp_kernel.takes(form)):
-        kwargs["ccp_data"] = ccp_kernel.CCPFusedData(form)
+    kwargs = fused_setups(form, improve, kwargs)
     sampler = spectral_sol = None
     if suggest == s.SDR:
         if handler is not None and getattr(handler, "mu", None) is not None:

@@ -12,6 +12,10 @@ Two routes, chosen by the same rule as the JAX package:
     launches, then the unfused phase 2 (solvers/coord_descent.py) on the
     restarts that are viol_tol-feasible.
 
+A stack of S forms of one shape (the scenario axis; parallel/scenarios.py)
+takes the same rule in `improve_coord_descent_fused_stack`: one K1 launch
+for all S x R restarts, or the K2 route one scenario at a time.
+
 `_mega_fits` is the JAX package's TPU VMEM budget, kept as it is so both
 packages route alike; deciding the rule for the H100 is a measurement for a
 later change.  In PyTorch the form is always concrete, so the equality
@@ -121,3 +125,33 @@ def improve_coord_descent_fused(form: QCQPForm, xs, num_iters=1000,
     if idx.numel():
         x[idx] = coord_descent_phase2(form, x[idx], num_iters, viol_tol, tol)
     return x
+
+
+def improve_coord_descent_fused_stack(stacked: QCQPForm, xs, num_iters=1000,
+                                      viol_tol=1e-2, tol=1e-4, phase1=True,
+                                      eq_idx=None, mega=None):
+    """The same improve for S stacked forms of one shape (P (S, m+1, n, n),
+    ...), xs (S, R, n) -> (S, R, n): where K1 runs (`mega`, default
+    `_mega_fits` of the shape), one K1 launch for all S x R restarts, each
+    scenario with its own equality pattern (eq_idx, when given, for every
+    scenario, as the JAX package applies it under vmap); otherwise the K2
+    route one scenario at a time."""
+    S = stacked.P.shape[0]
+    forms = [QCQPForm(*(a[i] for a in stacked)) for i in range(S)]
+    if mega is None:
+        mega = bool(forms) and _mega_fits(forms[0])
+    if not mega:
+        out = xs.clone()
+        for i, form in enumerate(forms):
+            out[i] = improve_coord_descent_fused(
+                form, xs[i], num_iters, viol_tol, tol, phase1, eq_idx,
+                mega=False)
+        return out
+    if eq_idx is None:
+        eqs = [tuple(int(j) for j in row.nonzero()[0])
+               for row in stacked.is_eq.cpu().numpy()]
+    else:
+        eqs = [eq_idx] * S
+    return two_phase_sweeps(stacked.P, stacked.q, stacked.r, eqs, xs,
+                            num_iters=num_iters, viol_tol=viol_tol, tol=tol,
+                            n_bisect=N_BISECT, phase1=phase1).to(xs.dtype)

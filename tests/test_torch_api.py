@@ -129,7 +129,7 @@ def test_methods_outside_the_slice_raise():
     """Every method of the JAX handler runs now: SPECTRAL and IPOPT match
     the JAX package from the same point (the spectral bound and point, and
     the IPOPT improve of the same start, 1e-6 relative), and run through
-    QCQP.solve.  The mesh (scenarios + distributed) and unknown names
+    QCQP.solve.  The mesh (the distributed module) and unknown names
     still raise."""
     jprob, jx, _, _ = boolean_ls(jqt)
     prob, x, _, _ = boolean_ls(tqt)
@@ -149,7 +149,7 @@ def test_methods_outside_the_slice_raise():
     for kw in (dict(improve=tqt.IPOPT), dict(suggest=tqt.SPECTRAL)):
         f, v = h.solve(num_restarts=4, **kw)
         assert np.isfinite(f) and np.isfinite(v)
-    with pytest.raises(NotImplementedError, match="scenarios"):
+    with pytest.raises(NotImplementedError, match="distributed module"):
         tqt.solve_restarts(h.qcqp_form, 4, mesh=object())
     with pytest.raises(ValueError):
         h.suggest("nope")

@@ -237,6 +237,91 @@ def test_k1_kernel_equals_plain_on_ties(cuda, eq):
     _k1_holds(form, xs.to(cuda), 6)
 
 
+def _k1_stack(cuda, S, n, m, R, seed):
+    """S forms of one shape, each with its own equality pattern (E = 0, m,
+    about m/2 and about m/4 in turn), stacked on the card, and (S, R, n)
+    starts."""
+    from qcqp_tpu_torch.convert import form_from_numpy
+    from qcqp_tpu_torch.parallel.scenarios import stack_forms
+    forms = []
+    for s in range(S):
+        arrays, rng = _k1_form(n, m, seed + s, (0.0, 1.0, 0.5, 0.25)[s % 4])
+        forms.append(form_from_numpy(*arrays, device=cuda,
+                                     dtype=torch.float32))
+    xs = torch.from_numpy((0.5 * rng.standard_normal((S, R, n)))
+                          .astype(np.float32)).to(cuda)
+    return stack_forms(forms), [f.eq_idx() for f in forms], xs
+
+
+def test_k1_stacked_launch_equals_plain(cuda):
+    """One K1 launch over a stack of S = 4 forms with different E (0, m
+    and between), R = 33 a scenario, one sweep, equals the plain version
+    run scenario by scenario, every lane bit for bit; both wrappers, one
+    launch each."""
+    from qcqp_tpu_torch.kernels import cd_sweep_kernel as tk
+    st, eqs, xs = _k1_stack(cuda, 4, 9, 30, 33, 40)
+    assert len({len(e) for e in eqs}) == 4 and {0, 30} <= {len(e)
+                                                           for e in eqs}
+    args = (st.P, st.q, st.r, eqs)
+    for fn, ref in ((tk.two_phase_sweeps, tk.two_phase_sweeps_ref),
+                    (tk.phase1_sweeps, tk.phase1_sweeps_ref)):
+        before = fn.launches
+        out = fn(*args, xs, num_iters=1)
+        assert fn.launches == before + 1
+        want = ref(*args, xs, num_iters=1)
+        torch.cuda.synchronize()
+        assert out.shape == xs.shape and torch.equal(out, want)
+        assert (out != xs).any()
+
+
+def test_k1_stacked_launch_equals_single_launches(cuda):
+    """The stacked launch equals S single-form launches on the same
+    starts, every lane bit for bit, with E different per scenario."""
+    from qcqp_tpu_torch.kernels import cd_sweep_kernel as tk
+    st, eqs, xs = _k1_stack(cuda, 4, 9, 70, 33, 50)
+    before = tk.two_phase_sweeps.launches
+    out = tk.two_phase_sweeps(st.P, st.q, st.r, eqs, xs, num_iters=3)
+    assert tk.two_phase_sweeps.launches == before + 1
+    for s in range(4):
+        one = tk.two_phase_sweeps(st.P[s], st.q[s], st.r[s], eqs[s], xs[s],
+                                  num_iters=3)
+        torch.cuda.synchronize()
+        assert torch.equal(out[s], one)
+
+
+def test_k1_stack_of_one_equals_single_form(cuda):
+    """S = 1 is the single-form launch: the same bits as the call on the
+    form itself."""
+    from qcqp_tpu_torch.kernels import cd_sweep_kernel as tk
+    st, eqs, xs = _k1_stack(cuda, 1, 9, 30, 300, 60)
+    out = tk.two_phase_sweeps(st.P, st.q, st.r, eqs, xs, num_iters=4)
+    one = tk.two_phase_sweeps(st.P[0], st.q[0], st.r[0], eqs[0], xs[0],
+                              num_iters=4)
+    torch.cuda.synchronize()
+    assert out.shape == (1, 300, 9) and torch.equal(out[0], one)
+
+
+def test_solve_scenarios_on_the_card(cuda):
+    """solve_scenarios on a CUDA float32 stack launches K1 once for all
+    S x R restarts, and each scenario equals solve_restarts on its form
+    from the generator after the draws of the scenarios before it, bit
+    for bit."""
+    from qcqp_tpu_torch.kernels import cd_sweep_kernel as tk
+    from qcqp_tpu_torch.parallel.restarts import solve_restarts
+    from qcqp_tpu_torch.parallel.scenarios import scenario, solve_scenarios
+    st, _, _ = _k1_stack(cuda, 4, 9, 30, 1, 70)
+    gen = lambda: torch.Generator(device=cuda).manual_seed(5)  # noqa: E731
+    before = tk.two_phase_sweeps.launches
+    xs, fs, vs = solve_scenarios(st, 64, gen(), num_iters=10)
+    assert tk.two_phase_sweeps.launches == before + 1
+    assert xs.shape == (4, 9) and fs.shape == vs.shape == (4,)
+    g = gen()
+    for s in range(4):
+        x, f, v = solve_restarts(scenario(st, s), 64, g, num_iters=10)
+        assert torch.equal(x, xs[s]) and torch.equal(f, fs[s])
+        assert torch.equal(v, vs[s])
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     from qcqp_tpu_torch.kernels import cd_sweep_kernel as k1
     from qcqp_tpu_torch.kernels import onevar_kernel as k2

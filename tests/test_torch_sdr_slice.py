@@ -180,7 +180,8 @@ def test_sdr_is_ported_and_spectral_still_raises():
 def test_port_imports_no_jax():
     code = ("import sys; import qcqp_tpu_torch, qcqp_tpu_torch.solvers.sdp, "
             "qcqp_tpu_torch.kernels.eigh_kernel, qcqp_tpu_torch.convert, "
-            "qcqp_tpu_torch.parallel.restarts; "
+            "qcqp_tpu_torch.parallel.restarts, "
+            "qcqp_tpu_torch.parallel.scenarios, qcqp_tpu_torch.native; "
             "assert 'jax' not in sys.modules; "
             "assert not any(m == 'qcqp_tpu' or m.startswith('qcqp_tpu.') "
             "for m in sys.modules)")
