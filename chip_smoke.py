@@ -166,7 +166,8 @@ launch no kernel, go first (`plain_runs`: the plain versions that phases
                launch (its count set to 0 before, read after);
  17. nlp_path  improve_nlp (the IPOPT improve) on the bench form in
                float32, RANDOM starts, at R = 128 and 10,240: a short
-               warm-up and 3 timed improves, ms, restarts/s, best (f, v),
+               warm-up and 3 timed improves (1 at 10,240), ms, restarts/s,
+               best (f, v),
                the share of lanes at violation < 1e-3, the lanes whose
                violation overflowed, Newton trips and host reads a
                solve; in turns, the Armijo loop with a host read a trip
@@ -199,6 +200,31 @@ launch no kernel, go first (`plain_runs`: the plain versions that phases
                scenarios, each equal to solve_restarts on its form from
                the same starts, bit for bit, K3 launched twice a scenario
                (its two phases) and K4 once.
+ 19. distributed the distributed module (qcqp_tpu_torch/parallel/) on the
+               one card, each rank a process of its own (`python3
+               chip_smoke.py --dist-worker SPEC`, all three started
+               together once the kernels are built, their output in files
+               of the work directory): (a) an NCCL world of one on cuda:0,
+               solve_restarts over global_mesh() on the main path's form,
+               R = 10,240, 10 sweeps: a warm-up and 3 timed solves in turns
+               with the same solve without a mesh, one K1 launch each, the
+               first equal to phase 5's first solve bit for bit, and the
+               cross-rank collective timed alone; (b) two gloo ranks, both
+               on cuda:0: CD (3 timed solves, K1), ADMM at R = 1,024, 50
+               iterations (K3) and DCCP at R = 128, max_iter=6 (K4, one
+               64-lane tile a rank) sharded over make_mesh(), each rank's
+               block equal to those rows of the one-process chain bit for
+               bit and the best point to the one-process solve's (CD's
+               also to (a)); solve_scenarios_sharded on an (s = 2, r = 1)
+               mesh, each rank loading its 66 scenarios of phase 18's
+               bank, one K1 launch over 66 x 64 lanes, all 132 results on
+               both ranks equal to phase 18's first timed solve bit for
+               bit; solve_restarts_2d on an (r = 1, c = 2) mesh, R = 1,024,
+               50 iterations, one all_reduce an iteration, its best point
+               the same on both ranks, in quality parity with
+               improve_admm_batch on the same starts (tests/test_mesh2d.py:
+               38-45 and 100-101).  Two ranks time-slicing one
+               card give no scaling figure: their times are what they are.
 
 Then the seconds each phase took, the card's line from nvidia-smi, the
 kernels' JSON line (time, plain time, bound and launches of each kernel),
@@ -889,7 +915,7 @@ def phase_main(arrays, plain):
                           "lane_sweeps": sweeps, "probes": probes},
           "launches": launches})
     return (launches, ms_main, (ms_k1_a + ms_k1_b) / 2, ms_plain, k1_err,
-            bound(ops, nbytes))
+            bound(ops, nbytes), results[0])
 
 
 def _k3_agrees(name, xk, xp):
@@ -2064,7 +2090,7 @@ def phase_spectral(sdr_bound):
 
 
 R_NLP = (128, 10240)                  # bench.py:242 (BENCH_CCP_R); 10^4
-NLP_REPEATS = 3
+NLP_REPEATS = {128: 3, 10240: 1}      # timed solves per R
 # the schedule of the card-against-CPU lane check: the default schedule's
 # trajectories on the bench form amplify a few-ulp change of the start
 # into an order-1 change of (f, v) on every lane, so the lanes are held
@@ -2096,12 +2122,12 @@ def _armijo_alt(form, Pt, xi, p, val, gp, lmb, mu, act):
 
 def phase_nlp_path(arrays):
     """improve=IPOPT on the bench form in float32 on the card, RANDOM
-    starts: at R = 128 and 10,240 one warm-up and 3 timed improves (the
-    improve alone, as bench.py:266-271 times it), in turns with the
-    Armijo loop that reads the host once a trip on the first two timed
-    solves' starts (equal bit for bit); 16 starts in float64 on the card
-    against the CPU; the handler's improve(IPOPT) on boolean least
-    squares."""
+    starts: one warm-up and NLP_REPEATS timed improves at each R (the
+    improve alone, as bench.py:266-271 times it: 3 at R = 128, 1 at
+    10,240), in turns with the Armijo loop that reads the host once a trip
+    on the first two timed solves' starts at R = 128 and the one at 10,240
+    (equal bit for bit); 16 starts in float64 on the card against the CPU;
+    the handler's improve(IPOPT) on boolean least squares."""
     import torch
     import qcqp_tpu_torch as qt
     from qcqp_tpu_torch.convert import form_from_numpy
@@ -2118,7 +2144,8 @@ def phase_nlp_path(arrays):
     for R in R_NLP:
         improve_nlp(form, starts(0, R), **NLP_LANE_KW)  # warm-up
         times, reads, trips, alt_ms = [], [], [], []
-        for seed in range(1, 1 + NLP_REPEATS):
+        repeats = NLP_REPEATS[R]
+        for seed in range(1, 1 + repeats):
             xs = starts(seed, R)
             r0, t0 = improve_nlp.host_reads, improve_nlp.newton_trips
             ms, x = host_ms(lambda: improve_nlp(form, xs))
@@ -2127,7 +2154,7 @@ def phase_nlp_path(arrays):
             trips.append(improve_nlp.newton_trips - t0)
             if seed == 1:
                 x_first = x
-            if seed == NLP_REPEATS:
+            if seed == repeats > 1:
                 break
             # the Armijo loop with host reads on the same starts, in turns
             # with the masked one: the same lanes bit for bit
@@ -2409,8 +2436,7 @@ def phase_scenarios(sample, workdir):
     half = S_SERVE // 2
     load_s, halves = host_ms(lambda: [forms_from_bank(path, 0, half),
                                       forms_from_bank(path, half)])
-    load_s /= 1e3
-    os.unlink(path)
+    load_s /= 1e3                   # the bank stays for phase distributed
     stacked = QCQPForm(*(torch.cat(pair) for pair in zip(*halves)))
     del arrays, halves
     if stacked.P.shape != (S_SERVE, M + 1, N, N):
@@ -2511,6 +2537,7 @@ def phase_scenarios(sample, workdir):
               **b},
           "per_scenario_routes": routes})
     return {"launches": launches, "ms": (ms_stack_a + ms_stack_b) / 2,
+            "bank": path, "first_solve": results[0],
             "ms_loop": ms_loop, "ms_per_solve": ms_solve,
             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
             "bound_from": "sampled: K1's plain version on the CPU, "
@@ -2518,6 +2545,430 @@ def phase_scenarios(sample, workdir):
             "shape": f"S={S_SERVE}, n={N}, m={M}, R={R_SERVE} a scenario "
                      f"({S_SERVE * R_SERVE} lanes), {SWEEPS} sweeps, "
                      "E per scenario"}
+
+
+R_DIST_ADMM, R_DIST_CCP = 1024, 128      # the ADMM and DCCP paths' first R
+R_DIST_2D = 1024
+DIST_REPEATS = 3
+
+
+def _capture_chain():
+    """Record every output of parallel/restarts.improve_chain (a rank's
+    improved block under a mesh); returns the list and the undo."""
+    from qcqp_tpu_torch.parallel import restarts
+    real, seen = restarts.improve_chain, []
+
+    def chain(*a, **kw):
+        out = real(*a, **kw)
+        seen.append(out)
+        return out
+    restarts.improve_chain = chain
+    return seen, lambda: setattr(restarts, "improve_chain", real)
+
+
+def _collective_ms(mesh, device):
+    """Host time of the cross-rank best point's collective alone: one
+    all_gather of n + 3 float32 numbers over the restart axis, median of
+    5 after a warm-up."""
+    import torch
+    cand = torch.zeros(N + 3, dtype=torch.float32, device=device)
+    mesh.all_gather(cand, "r")
+    return float(np.median([host_ms(lambda: mesh.all_gather(cand, "r"))[0]
+                            for _ in range(5)]))
+
+
+def dist_worker(spec_path):
+    """(run as `--dist-worker SPEC`) one rank of phase distributed: set-up
+    (a), an NCCL world of one, or (b), a gloo world of two, both on
+    cuda:0.  Writes its results to the work directory and prints one JSON
+    line."""
+    import torch
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from qcqp_tpu_torch.kernels import _build
+    from qcqp_tpu_torch.parallel import launch
+    with open(spec_path) as f:
+        spec = json.load(f)
+    t0 = time.perf_counter()
+    _build.library()                      # built by the parent: a load
+    device = launch.initialize(spec["coordinator"], spec["world"],
+                               spec["rank"], device="cuda:0",
+                               backend=spec["backend"], timeout=300.0)
+    torch.zeros(1, device=device)
+    ready_s = time.perf_counter() - t0
+    sys.stdin.readline()      # the parent's go: (a) first, then (b)
+    try:
+        out = (_dist_a if spec["setup"] == "a" else _dist_b)(spec, device)
+    finally:
+        launch.shutdown()
+    out.update(rank=spec["rank"], ready_s=ready_s,
+               jax_imported="jax" in sys.modules)
+    print(json.dumps(out), flush=True)
+
+
+def _dist_a(spec, device):
+    """(a) solve_restarts over global_mesh() in an NCCL world of one, on
+    the main path's form and seeds, beside the same solve without a mesh
+    in this process."""
+    import torch
+    from qcqp_tpu_torch.convert import form_from_numpy
+    from qcqp_tpu_torch.kernels.cd_sweep_kernel import two_phase_sweeps
+    from qcqp_tpu_torch.parallel import launch
+    from qcqp_tpu_torch.parallel.restarts import solve_restarts
+    form = form_from_numpy(*bench_form_arrays(0), device=device,
+                           dtype=torch.float32)
+    mesh = launch.global_mesh()
+
+    def solve(seed, **kw):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return solve_restarts(form, R_MAIN, gen, num_iters=SWEEPS, **kw)
+    solve(0, mesh=mesh)                                  # warm-up
+    times, single, launches = [], [], 0
+    for seed in range(1, 1 + DIST_REPEATS):
+        two_phase_sweeps.launches = 0
+        ms, res = host_ms(lambda: launch.solve_restarts_distributed(
+            form, R_MAIN, torch.Generator(device=device).manual_seed(seed),
+            num_iters=SWEEPS))
+        launches += two_phase_sweeps.launches
+        times.append(ms)
+        if seed == 1:
+            torch.save([t.cpu() for t in res],
+                       os.path.join(spec["workdir"], "dist_a.pt"))
+        single.append(host_ms(lambda: solve(seed))[0])   # in turns
+    return {"backend": torch.distributed.get_backend(), "world": 1,
+            "R": R_MAIN, "sweeps": SWEEPS,
+            "ms_per_solve": times, "ms_per_solve_no_mesh": single,
+            "collective_ms": _collective_ms(mesh, device),
+            "k1_launches": launches}
+
+
+def _dist_b(spec, device):
+    """(b) one of two gloo ranks on cuda:0: CD (K1), ADMM (K3) and DCCP
+    (K4) sharded over make_mesh(), solve_scenarios_sharded on an (s = 2,
+    r = 1) mesh from this rank's half of the bank, and solve_restarts_2d
+    on an (r = 1, c = 2) mesh."""
+    import torch
+    from qcqp_tpu_torch.convert import form_from_numpy
+    from qcqp_tpu_torch.kernels.admm_kernel import admm_phase
+    from qcqp_tpu_torch.kernels.ccp_kernel import ccp_improve
+    from qcqp_tpu_torch.kernels.cd_sweep_kernel import two_phase_sweeps
+    from qcqp_tpu_torch.parallel import Mesh, make_mesh, make_mesh_2d, mesh2d
+    from qcqp_tpu_torch.parallel.restarts import solve_restarts
+    from qcqp_tpu_torch.parallel.scenarios import (
+        forms_from_bank, scenario_block, solve_scenarios_sharded)
+    form = form_from_numpy(*bench_form_arrays(0), device=device,
+                           dtype=torch.float32)
+    mesh = make_mesh()
+    out = {"backend": torch.distributed.get_backend(),
+           "world": torch.distributed.get_world_size(),
+           "coords": mesh.coords}
+    dump = {}
+
+    def gen(seed):
+        return torch.Generator(device=device).manual_seed(seed)
+    kernels = {"cd": (two_phase_sweeps, DIST_REPEATS),
+               "admm": (admm_phase, 1), "dccp": (ccp_improve, 1)}
+    for name, improve, R, kw in DIST_CHAINS:
+        kernel, repeats = kernels[name]
+        if name == "cd":
+            solve_restarts(form, R, gen(0), improve=improve, mesh=mesh, **kw)
+        seen, undo = _capture_chain()
+        kernel.launches = 0
+        try:
+            times, results = [], []
+            for seed in range(1, 1 + repeats):
+                ms, res = host_ms(lambda: solve_restarts(
+                    form, R, gen(seed), improve=improve, mesh=mesh, **kw))
+                times.append(ms)
+                results.append(res)
+        finally:
+            undo()
+        out[name] = {"R": R, **kw, "ms_per_solve": times,
+                     "launches": kernel.launches,
+                     "block": list(seen[0].shape)}
+        dump[name] = {"block": seen[0].cpu(),
+                      "best": [t.cpu() for t in results[0]]}
+    out["collective_ms"] = _collective_ms(mesh, device)
+
+    grid = Mesh([("s", 2), ("r", 1)])
+    start, batch = scenario_block(S_SERVE, grid)
+    t0 = time.perf_counter()
+    local = forms_from_bank(spec["bank"], start, batch)
+    load_s = time.perf_counter() - t0
+    two_phase_sweeps.launches = 0
+    ms, res = host_ms(lambda: solve_scenarios_sharded(
+        local, R_SERVE, gen(1), grid, num_scenarios=S_SERVE,
+        num_iters=SWEEPS))
+    out["scenarios_sharded"] = {
+        "mesh": dict(grid.shape), "scenarios": [start, start + batch],
+        "lanes": batch * R_SERVE, "load_s": load_s, "ms": ms,
+        "k1_launches": two_phase_sweeps.launches}
+    dump["scenarios"] = [t.cpu() for t in res]
+
+    grid2 = make_mesh_2d(1, 2)
+    real, blocks = mesh2d._admm_2d_local, []
+
+    def local_admm(*a, **kw):
+        blocks.append(real(*a, **kw))
+        return blocks[-1]
+    mesh2d._admm_2d_local = local_admm
+    try:
+        ms, res = host_ms(lambda: mesh2d.solve_restarts_2d(
+            form, R_DIST_2D, gen(1), grid2, num_iters=ADMM_ITERS))
+    finally:
+        mesh2d._admm_2d_local = real
+    out["restarts_2d"] = {"mesh": dict(grid2.shape), "R": R_DIST_2D,
+                          "iters": ADMM_ITERS, "ms": ms,
+                          "all_reduces": grid2.calls["all_reduce"],
+                          "all_gathers": grid2.calls["all_gather"]}
+    dump["2d"] = {"block": blocks[0].cpu(), "best": [t.cpu() for t in res]}
+    torch.save(dump, os.path.join(spec["workdir"],
+                                  f"dist_b{spec['rank']}.pt"))
+    return out
+
+
+def _start_dist_workers(workdir, bank):
+    """Start the three ranks of phase distributed: (a) alone in an NCCL
+    world, and (b)'s two gloo ranks, which join their group and then wait
+    for the parent's go."""
+    import socket
+    procs = []
+    for setup, world, backend in (("a", 1, "nccl"), ("b", 2, "gloo")):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        for rank in range(world):
+            spec = os.path.join(workdir, f"dist_{setup}{rank}.json")
+            with open(spec, "w") as f:
+                json.dump({"setup": setup, "world": world, "rank": rank,
+                           "backend": backend, "workdir": workdir,
+                           "bank": bank,
+                           "coordinator": f"127.0.0.1:{port}"}, f)
+            log = os.path.join(workdir, f"dist_{setup}{rank}")
+            with open(log + ".out", "w") as out, \
+                    open(log + ".err", "w") as err:
+                proc = subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--dist-worker", spec], stdin=subprocess.PIPE,
+                    stdout=out, stderr=err, text=True)
+            proc.log = log
+            procs.append(proc)
+    return procs
+
+
+def _dist_result(proc, name, timeout=300):
+    """The worker's JSON line, once it has exited 0 (its output goes to
+    files, so that no pipe fills while another rank waits)."""
+    proc.wait(timeout=timeout)
+    with open(proc.log + ".out") as out, open(proc.log + ".err") as err:
+        out, err = out.read(), err.read()
+    if proc.returncode != 0:
+        raise AssertionError(f"distributed worker {name} exited "
+                             f"{proc.returncode}:\n{err[-3000:]}")
+    return json.loads(out.splitlines()[-1])
+
+
+def _rows_equal(a, b):
+    """Lanes of a equal to those of b bit for bit, and the count."""
+    a, b = a.contiguous().numpy(), b.contiguous().numpy()
+    return int((a.view(np.int32) == b.view(np.int32)).all(axis=1).sum())
+
+
+# The best objective of a sharded solve may differ from the one-process
+# solve's in its last bits: eval_objective_batch is an (R, n) x (n, n)
+# cuBLAS product whose kernel, and so its rows' rounding, depends on R
+# (on the bench form at R = 128 against 64, DCCP's points, up to 2.9e-6
+# relative; none at R = 1,024 and 10,240).  The cross-rank pick is exact
+# over the ranks' own values; against the one-process best it holds to:
+BEST_F_RTOL = 1e-5
+
+
+def _same_best(a, b):
+    return all(_equal(p, q) for p, q in zip(a, b))
+
+
+def _equal(p, q):
+    """Equal bit for bit (NaN included), on whichever devices."""
+    p, q = p.cpu(), q.cpu()
+    return p.shape == q.shape and bool(
+        (p.view(-1).numpy().view(np.int32)
+         == q.view(-1).numpy().view(np.int32)).all())
+
+
+class _Gathered:
+    """The ranks' candidates, stacked in one process: what pick_across's
+    all_gather returns on the ranks."""
+
+    def __init__(self, parts):
+        self.parts = parts
+
+    def all_gather(self, t, axis):
+        return self.parts
+
+
+def _best_vs_one_process(form, full, got):
+    """A rank's best point (x, f, v) against (1) the pick of the two
+    blocks' candidates computed here on the same blocks, which must be
+    equal bit for bit, and (2) the one-process best_point of the whole
+    batch, to BEST_F_RTOL in f with the same bucket; and how many rows'
+    objectives differ between the block-sized and the whole products."""
+    import torch
+    from qcqp_tpu_torch.core import eval_objective_batch, violation_bucket
+    from qcqp_tpu_torch.parallel.restarts import (best_point, candidate,
+                                                  pick_across)
+    halves = full.chunk(2)
+    cands = torch.stack([candidate(form, h) for h in halves])
+    pick = pick_across(cands[0], _Gathered(cands), "r", full.shape[0])
+    x1, f1, v1 = best_point(form, full)
+    f_rows = torch.cat([eval_objective_batch(form, h) for h in halves])
+    f_gap = abs(float(got[1]) - float(f1)) / max(abs(float(f1)), 1e-30)
+    same_bucket = bool(violation_bucket(got[2])
+                       == violation_bucket(v1.cpu()))
+    return {"best_is_pick_of_blocks": _same_best(got, pick),
+            "equal_to_one_process": _same_best(got, (x1, f1, v1)),
+            "x_equal_to_one_process": _equal(got[0], x1),
+            "f_rel_gap_to_one_process": f_gap,
+            "objective_rows_differing_by_block_size": int(
+                (f_rows != eval_objective_batch(form, full)).sum()),
+            "within_tolerance": same_bucket and f_gap <= BEST_F_RTOL}
+
+
+# (name, improve method, R, kwargs) of (b)'s sharded solve_restarts; the
+# methods are qcqp_tpu_torch.settings' COORD_DESCENT, ADMM and DCCP
+DIST_CHAINS = (("cd", "coord-descent", R_MAIN, dict(num_iters=SWEEPS)),
+               ("admm", "admm", R_DIST_ADMM, dict(num_iters=ADMM_ITERS)),
+               ("dccp", "dccp", R_DIST_CCP, CCP_ROUTE_KW))
+
+
+def _dist_references(form):
+    """What the ranks of (b) are held against, computed while they start:
+    the one-process chain of each improve on the seed-1 starts, and the
+    one-process batched ADMM on the 2-D solve's starts."""
+    import torch
+    from qcqp_tpu_torch.parallel.restarts import (fused_setups,
+                                                  improve_chain,
+                                                  suggest_batch)
+    from qcqp_tpu_torch.solvers.admm import improve_admm_batch
+
+    def starts(R):
+        return suggest_batch(form, R, torch.Generator(device="cuda")
+                             .manual_seed(1))
+    refs = {name: improve_chain(form, starts(R), improve, **fused_setups(
+        form, improve, dict(kw, use_fused=True)))
+        for name, improve, R, kw in DIST_CHAINS}
+    xs = starts(R_DIST_2D)
+    refs["admm_1d_ms"], refs["admm_1d"] = host_ms(
+        lambda: improve_admm_batch(form, xs, num_iters=ADMM_ITERS))
+    return refs
+
+
+def _go(proc):
+    proc.stdin.write("go\n")
+    proc.stdin.close()
+
+
+def phase_distributed(arrays, main_best, scen, workdir):
+    """The distributed module on one card (qcqp_tpu_torch/parallel/): (a)
+    an NCCL world of one and (b) two gloo ranks on cuda:0, each rank a
+    process of its own (`--dist-worker`), held against the one-process
+    solves, which run here while the workers start."""
+    import torch
+    from qcqp_tpu_torch.convert import form_from_numpy
+    from qcqp_tpu_torch.core import eval_objective_batch, max_violation_batch
+    t0 = time.perf_counter()
+    timeline = {}
+    form = form_from_numpy(*arrays, device="cuda", dtype=torch.float32)
+    procs = _start_dist_workers(workdir, scen["bank"])
+    try:
+        refs = _dist_references(form)
+        timeline["references_done"] = time.perf_counter() - t0
+        _go(procs[0])
+        a = _dist_result(procs[0], "(a)")
+        timeline["a_done"] = time.perf_counter() - t0
+        for p in procs[1:]:
+            _go(p)
+        b = [_dist_result(p, f"(b) rank {i}")
+             for i, p in enumerate(procs[1:])]
+        timeline["b_done"] = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    os.unlink(scen["bank"])
+    da = torch.load(os.path.join(workdir, "dist_a.pt"))
+    db = [torch.load(os.path.join(workdir, f"dist_b{i}.pt"))
+          for i in range(2)]
+    checks = {"a_equals_main_path": _same_best(da, main_best)}
+
+    # (b): each rank's block against the one-process chain, lane for lane
+    for name, _, R, _ in DIST_CHAINS:
+        full = refs[name]
+        same = sum(_rows_equal(d[name]["block"],
+                               full[i * R // 2:(i + 1) * R // 2].cpu())
+                   for i, d in enumerate(db))
+        got = [d[name]["best"] for d in db]
+        checks[name] = {"lanes_identical": f"{same} of {R}",
+                        "best_same_on_both_ranks": _same_best(*got),
+                        **_best_vs_one_process(form, full, got[0])}
+        if (same != R or not checks[name]["best_same_on_both_ranks"]
+                or not checks[name]["best_is_pick_of_blocks"]
+                or not checks[name]["within_tolerance"]):
+            raise AssertionError(f"distributed {name}: {checks}")
+    checks["cd_best_equals_a"] = _same_best(db[0]["cd"]["best"], da)
+    first = scen["first_solve"]
+    same = [sum(int(all(_equal(d["scenarios"][k][s], first[k][s])
+                        for k in range(3)))
+                for s in range(S_SERVE)) for d in db]
+    checks["scenarios_identical_per_rank"] = same
+
+    # the 2-D ADMM: one best point on both ranks, and quality parity with
+    # the one-process batched ADMM on the same starts
+    checks["2d_best_same_on_both_ranks"] = _same_best(db[0]["2d"]["best"],
+                                                      db[1]["2d"]["best"])
+    out1d, out2d = refs["admm_1d"], db[0]["2d"]["block"].cuda()
+    v2d, v1d = (max_violation_batch(form, o).cpu().numpy()
+                for o in (out2d, out1d))
+    f2d, f1d = (eval_objective_batch(form, o).cpu().numpy()
+                for o in (out2d, out1d))
+    # tests/test_mesh2d.py:38-45: a feasible share no lower, f within 5%
+    # (rtol 0.05, atol 0.05) where both are feasible; and :100-101, each
+    # restart's violation within the consensus scale (rtol 0.1, atol 5e-2)
+    feas = (v2d < 1e-2) & (v1d < 1e-2)
+    gap = np.abs(f2d - f1d) - (0.05 + 0.05 * np.abs(f1d))
+    parity = {"feasible_share_2d": float((v2d < 1e-2).mean()),
+              "feasible_share_1d": float((v1d < 1e-2).mean()),
+              "both_feasible": int(feas.sum()),
+              "f_within_5pct": bool((gap[feas] <= 0).all()),
+              "viol_within_consensus_scale": bool(np.allclose(
+                  v2d, v1d, rtol=0.1, atol=5e-2)),
+              "max_abs_viol_gap": float(np.abs(v2d - v1d).max()),
+              "median_viol_2d": float(np.median(v2d)),
+              "median_viol_1d": float(np.median(v1d)),
+              "ms_one_process_unfused": refs["admm_1d_ms"]}
+    checks["2d_parity"] = parity
+    emit({"phase": "distributed", "a": a, "b": b, "checks": checks,
+          "timeline_s": timeline})
+    failed = [k for k in ("a_equals_main_path", "cd_best_equals_a",
+                          "2d_best_same_on_both_ranks") if not checks[k]]
+    if (failed or same != [S_SERVE, S_SERVE]
+            or parity["feasible_share_2d"] < parity["feasible_share_1d"]
+            or not parity["f_within_5pct"]
+            or not parity["viol_within_consensus_scale"]):
+        raise AssertionError(f"distributed: {failed} {checks}")
+    bad = [w for w in [a] + b if w["jax_imported"]]
+    launches = {"k1_a": a["k1_launches"],
+                "k1_b": [w["cd"]["launches"] for w in b],
+                "k1_scenarios_sharded": [w["scenarios_sharded"]["k1_launches"]
+                                         for w in b],
+                "k3_b": [w["admm"]["launches"] for w in b],
+                "k4_b": [w["dccp"]["launches"] for w in b]}
+    if bad or launches != {"k1_a": DIST_REPEATS,
+                           "k1_b": [DIST_REPEATS] * 2,
+                           "k1_scenarios_sharded": [1, 1],
+                           "k3_b": [2, 2], "k4_b": [1, 1]}:
+        raise AssertionError(f"distributed launches {launches}")
+    return launches
 
 
 def _device_ms_by_kernel(prof):
@@ -2708,11 +3159,15 @@ def main():
     args.add_argument("--k1-sample", metavar="PATH",
                       help="(internal) count K1's plain version on the "
                            "sampled starts in PATH, on the CPU")
+    args.add_argument("--dist-worker", metavar="SPEC",
+                      help="(internal) one rank of phase distributed")
     args = args.parse_args()
     if args.k1_sample:
         return k1_sample_counts(args.k1_sample)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device")
+    if args.dist_worker:
+        return dist_worker(args.dist_worker)
     sys.path.insert(0, REPO)
     import qcqp_tpu_torch  # noqa: F401  (fails outside a checkout)
     with tempfile.TemporaryDirectory() as workdir:
@@ -2751,7 +3206,7 @@ def run_phases(args, sample, workdir):
     k2 = timed("k2", phase_k2, arrays[3])
     k1_err = timed("k1", phase_k1, arrays)
     timed("golden", phase_golden)
-    launches, ms_main, ms_k1, ms_plain, k1_main_err, k1_bound = \
+    launches, ms_main, ms_k1, ms_plain, k1_main_err, k1_bound, main_best = \
         timed("main_path", phase_main, arrays, plain)
     k2_route = timed("k2_route", phase_k2_route,
                      bench_form_arrays(0, N_K2, M_K2))
@@ -2768,6 +3223,8 @@ def run_phases(args, sample, workdir):
     spectral = timed("spectral", phase_spectral, sdr_bound)
     timed("nlp_path", phase_nlp_path, arrays)
     scen = timed("scenarios", phase_scenarios, sample, workdir)
+    dist = timed("distributed", phase_distributed, arrays, main_best, scen,
+                 workdir)
     if args.profile:
         timed("profile", phase_profile, arrays)
     if "jax" in sys.modules:
@@ -2795,7 +3252,13 @@ def run_phases(args, sample, workdir):
          "bound_ms_scenarios": scen["bound_ms"],
          "bound_by_scenarios": scen["bound_by"],
          "bound_scenarios_from": scen["bound_from"],
-         "ms_per_scenario_solve": scen["ms_per_solve"]},
+         "ms_per_scenario_solve": scen["ms_per_solve"],
+         "launches_distributed": {
+             "a: NCCL world 1, solve_restarts over global_mesh()":
+                 dist["k1_a"],
+             "b: gloo world 2 on one card, per rank": dist["k1_b"],
+             "b: solve_scenarios_sharded (s = 2), per rank":
+                 dist["k1_scenarios_sharded"]}},
         {"name": "K2 phase1_coordinate_update", "route": "cuda",
          "source": "qcqp_tpu_torch/csrc/onevar_phase1.cu",
          "replaces": "qcqp_tpu/kernels/onevar_pallas.py:502",
@@ -2827,7 +3290,10 @@ def run_phases(args, sample, workdir):
                   "both phases",
          "ms_by_R": admm["ms_by_R"], "plain_ms_by_R": admm["plain_ms_by_R"],
          "bound_ms_by_R": admm["bound_ms_by_R"],
-         "ms_admm_path": admm["ms_per_solve"]},
+         "ms_admm_path": admm["ms_per_solve"],
+         "launches_distributed": {
+             f"b: gloo world 2 on one card, R = {R_DIST_ADMM}, per rank":
+                 dist["k3_b"]}},
         {"name": "K4 ccp_improve", "route": "cuda",
          "source": "qcqp_tpu_torch/csrc/ccp_impl.cuh",
          "replaces": "qcqp_tpu/kernels/ccp_pallas.py:488",
@@ -2845,7 +3311,10 @@ def run_phases(args, sample, workdir):
                            for R, v in ccp["alone"].items()},
          "ms_per_inner_trip_by_R": {
              R: v["ms_per_inner_trip"] for R, v in ccp["alone"].items()},
-         "ms_ccp_path": ccp["ms_per_solve"]},
+         "ms_ccp_path": ccp["ms_per_solve"],
+         "launches_distributed": {
+             f"b: gloo world 2 on one card, R = {R_DIST_CCP}, per rank":
+                 dist["k4_b"]}},
         {"name": "K5 eigh_jacobi_vec / eigh_jacobi", "route": "cuda",
          "source": "qcqp_tpu_torch/csrc/eigh_jacobi.cu",
          "replaces": "qcqp_tpu/kernels/eigh_pallas.py:272 and :377",

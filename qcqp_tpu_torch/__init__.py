@@ -9,10 +9,12 @@ solvers/sdp.py, with the Jacobi eigh kernel K5 on its psd_method="vec"
 projection), then the improves two-phase coordinate descent (kernels K1
 and K2 on CUDA), consensus ADMM (K3), penalty CCP, the DCCP improve (K4),
 and the augmented-Lagrangian IPOPT improve, and the best-point reduction;
-and the scenario serving path (parallel/scenarios.py: the threaded
+the scenario serving path (parallel/scenarios.py: the threaded
 problem bank of native/, stacked instances, one K1 launch over the whole
-scenario x restart grid).  Not ported yet: the multi-device mesh
-(ROADMAP.md Queue 1).  The package imports torch and never jax.  Forms
+scenario x restart grid); and the multi-process run, one process per
+device (parallel/launch.py: torch.distributed; restarts, scenarios and
+constraints sharded over a mesh of processes, parallel/mesh.py and
+mesh2d.py).  The package imports torch and never jax.  Forms
 land on the first CUDA device unless the caller names another
 (device="cpu"), and without a card naming none raises; dtypes are
 explicit (float64 on the CPU, float32 on CUDA by default), since torch

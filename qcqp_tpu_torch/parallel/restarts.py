@@ -1,5 +1,6 @@
-"""Restart parallelism on one device: suggest -> improve chain -> best point
-(JAX counterpart: qcqp_tpu/parallel/restarts.py, without the mesh).
+"""Restart parallelism: suggest -> improve chain -> best point, on one device
+or sharded over a mesh of processes (JAX counterpart:
+qcqp_tpu/parallel/restarts.py).
 
 The reference runs suggest/improve chains one at a time (reference:
 examples/boolean_least_squares.py:19-38).  Here a whole batch of restarts
@@ -21,13 +22,27 @@ package.
 Randomness is an explicit torch.Generator on the form's device.  Its
 normal draws are not jax.random's: tests hand both packages the same numpy
 starts instead.
+
+With a mesh (parallel/mesh.Mesh, one process per device) the restarts
+shard over the mesh's first axis, as the JAX package's shard_map maps the
+chain per device.  Every rank draws the whole padded batch from its
+generator (the same seed on every rank) and keeps its contiguous block,
+so the starts are those of the one-process run; the kernels run per rank
+at their own defaults; then each rank takes its best point and one
+all_gather of (n + 3) numbers a rank picks the winner, the lowest global
+restart index on a tie, as the one-process best_point does.  An SDR or
+SPECTRAL relaxation is solved (or read from `handler`) on the mesh's
+first rank only and broadcast, so that every rank samples from the same
+bits.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Union
+import math
+from typing import List, Optional, Sequence, Union
 
 import torch
+import torch.distributed as dist
 
 from .. import settings as s
 from ..core import (QCQPForm, eval_objective_batch, max_violation_batch,
@@ -39,6 +54,18 @@ from ..solvers.admm import improve_admm_batch
 from ..solvers.nlp import improve_nlp
 from ..solvers.sdp import solve_sdr, solve_spectral
 from ..kernels import admm_kernel, ccp_kernel
+from .mesh import Mesh, block
+
+
+def make_mesh(ranks: Optional[Sequence[int]] = None,
+              axis: str = "r") -> Mesh:
+    """1-D mesh over the processes of the world (default: all of them),
+    named `axis`: the restart axis.  Without a process group it is this
+    process alone."""
+    if ranks is None:
+        ranks = range(dist.get_world_size() if dist.is_initialized() else 1)
+    ranks = list(ranks)
+    return Mesh([(axis, len(ranks))], ranks)
 
 
 def _fused_default(form: QCQPForm) -> bool:
@@ -57,6 +84,30 @@ def best_point(form: QCQPForm, xs: torch.Tensor, tol: float = 1e-4):
     fs_masked = torch.where(buckets == bmin, fs, float("inf"))
     i = torch.argmin(fs_masked)          # first minimal index (tie-break)
     return xs[i], fs[i], viols[i]
+
+
+def candidate(form: QCQPForm, xs: torch.Tensor, tol: float = 1e-4):
+    """best_point of xs (R, n), R >= 1, as one row (bucket, f, v, x) of
+    n + 3 numbers: what a rank sends for the cross-rank best point."""
+    x, f, v = best_point(form, xs, tol)
+    return torch.cat([torch.stack([violation_bucket(v, tol), f, v]), x])
+
+
+def pick_across(cand: torch.Tensor, mesh: Mesh, axis: str, total: int):
+    """best_point of a batch of `total` restarts split into contiguous
+    blocks along `axis` (mesh.block), from each rank's candidate of its
+    block (cand (n + 3,), or (S, n + 3) for S batches at once; anything
+    where the block is empty): one all_gather over `axis`, then the least
+    bucket, the least f and the first block, which is best_point's argmin
+    over the whole batch, since its winner is its own block's winner.
+    Returns (x, f, v), the same on every rank of the axis."""
+    # blocks total, total + 1, ... are the empty ones
+    cands = mesh.all_gather(cand, axis)[:total]
+    b, f = cands[..., 0], cands[..., 1]
+    bmin = b.min(dim=0, keepdim=True).values
+    j = torch.argmin(torch.where(b == bmin, f, float("inf")), dim=0)
+    win = torch.take_along_dim(cands, j[None, ..., None], dim=0)[0]
+    return win[..., 3:], win[..., 1], win[..., 2]
 
 
 def sdr_sampler(X: torch.Tensor, eps: float = 1e-8):
@@ -182,12 +233,45 @@ def fused_setups(form: QCQPForm, improve: Union[str, List[str]],
     return kwargs
 
 
+def _relaxation(form: QCQPForm, suggest: str, handler):
+    """(sdr_sampler, spectral_sol) for the suggest: the relaxation cached
+    on `handler` when it has one, else solved here."""
+    if suggest == s.SDR:
+        if handler is not None and getattr(handler, "mu", None) is not None:
+            return (handler.mu, handler._sigma_chol), None
+        return sdr_sampler(solve_sdr(form)[0]), None
+    if suggest == s.SPECTRAL:
+        spectral_sol = getattr(handler, "spectral_sol", None)
+        if spectral_sol is None:
+            spectral_sol = solve_spectral(form)[0]
+        return None, spectral_sol
+    return None, None
+
+
+def _from_first_rank(mesh: Mesh, parts, shapes, device):
+    """`parts` (tensors of one float dtype) of the mesh's first rank, on
+    every rank; the other ranks pass None and the shapes.  Sent as float64
+    with a flag for float32, so both dtypes arrive bit for bit."""
+    size = sum(math.prod(sh) for sh in shapes)
+    buf = torch.zeros(1 + size, dtype=torch.float64, device=device)
+    if parts is not None:
+        buf[0] = float(parts[0].dtype == torch.float32)
+        buf[1:] = torch.cat([t.reshape(-1).to(buf) for t in parts])
+    buf = mesh.broadcast(buf)
+    dtype = torch.float32 if bool(buf[0] == 1) else torch.float64
+    out, i = [], 1
+    for sh in shapes:
+        out.append(buf[i:i + math.prod(sh)].reshape(sh).to(dtype))
+        i += math.prod(sh)
+    return out
+
+
 def solve_restarts(form: QCQPForm, num_restarts: int,
                    generator: Optional[torch.Generator] = None,
                    suggest: str = s.RANDOM,
                    improve: Union[str, List[str]] = s.COORD_DESCENT,
-                   mesh=None, handler=None, better_tol: float = 1e-4,
-                   **kwargs):
+                   mesh: Optional[Mesh] = None, handler=None,
+                   better_tol: float = 1e-4, **kwargs):
     """Full pipeline: suggest -> improve chain -> best-of reduction.
 
     generator: a torch.Generator on the form's device (default: seed 0).
@@ -196,28 +280,57 @@ def solve_restarts(form: QCQPForm, num_restarts: int,
     On a CUDA float32 form CD, ADMM and DCCP run through the kernels unless
     the caller passes use_fused; the one-time setups of the fused ADMM and
     CCP (kernels/admm_kernel.ADMMFusedData, kernels/ccp_kernel.CCPFusedData)
-    are built here once.  Returns (x_best, f_best, viol_best) as tensors.
+    are built here once.
+
+    mesh: shard the restarts over the mesh's first axis (module
+    docstring).  Every rank of the mesh calls this with the same arguments
+    and its own copy of the form on its device; the restart count pads to
+    a multiple of the mesh's size, as in the JAX package.  Returns
+    (x_best, f_best, viol_best) as tensors, on every rank of a mesh.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "solve_restarts(mesh=...) is not ported to qcqp_tpu_torch yet: "
-            "it comes with the distributed module")
     if generator is None:
         generator = torch.Generator(device=form.device).manual_seed(0)
     if "use_fused" not in kwargs and _fused_default(form):
         kwargs["use_fused"] = True
     kwargs = fused_setups(form, improve, kwargs)
+    if mesh is None:
+        sampler, spectral_sol = _relaxation(form, suggest, handler)
+        xs = suggest_batch(form, num_restarts, generator, suggest,
+                           sdr_sampler=sampler, spectral_sol=spectral_sol)
+        return best_point(form, improve_chain(form, xs, improve, **kwargs),
+                          better_tol)
     sampler = spectral_sol = None
-    if suggest == s.SDR:
-        if handler is not None and getattr(handler, "mu", None) is not None:
-            sampler = (handler.mu, handler._sigma_chol)
+    if suggest in (s.SDR, s.SPECTRAL):
+        # the mesh's first rank solves (or reads) the relaxation; every
+        # rank samples from its bits
+        n, parts = form.n, None
+        if mesh.grid.flat[0] == mesh.rank:
+            sampler, spectral_sol = _relaxation(form, suggest, handler)
+            parts = list(sampler) if suggest == s.SDR else [spectral_sol]
+        shapes = [(n,), (n, n)] if suggest == s.SDR else [(n,)]
+        parts = _from_first_rank(mesh, parts, shapes, form.device)
+        if suggest == s.SDR:
+            sampler = tuple(parts)
         else:
-            sampler = sdr_sampler(solve_sdr(form)[0])
-    elif suggest == s.SPECTRAL:
-        spectral_sol = getattr(handler, "spectral_sol", None)
-        if spectral_sol is None:
-            spectral_sol = solve_spectral(form)[0]
-    xs = suggest_batch(form, num_restarts, generator, suggest,
+            spectral_sol, = parts
+    num_padded = -(-num_restarts // mesh.size) * mesh.size
+    xs = suggest_batch(form, num_padded, generator, suggest,
                        sdr_sampler=sampler, spectral_sol=spectral_sol)
-    xs = improve_chain(form, xs, improve, **kwargs)
-    return best_point(form, xs, better_tol)
+    return _solve_sharded(form, xs, improve, mesh, better_tol, **kwargs)
+
+
+def _solve_sharded(form: QCQPForm, xs: torch.Tensor,
+                  improve: Union[str, List[str]], mesh: Mesh,
+                  better_tol: float = 1e-4, **kwargs):
+    """solve_restarts(mesh=...) after the draw: from the whole batch xs
+    (R, n), this rank's block over the mesh's first axis through the
+    improve chain, then the best point across the axis."""
+    axis = mesh.axis_names[0]
+    R = xs.shape[0]
+    lo, hi = block(R, mesh.shape[axis], mesh.index(axis))
+    if hi > lo:
+        cand = candidate(form, improve_chain(form, xs[lo:hi], improve,
+                                             **kwargs), better_tol)
+    else:
+        cand = xs.new_zeros(form.n + 3)
+    return pick_across(cand, mesh, axis, R)

@@ -1,7 +1,7 @@
-"""Scenario parallelism on one device: S independent instances of one shape
-(n, m), stacked along a leading scenario axis, R restarts each, solved
-together (JAX counterpart: qcqp_tpu/parallel/scenarios.py, without the
-mesh).
+"""Scenario parallelism: S independent instances of one shape (n, m),
+stacked along a leading scenario axis, R restarts each, solved together,
+on one device or over a mesh of processes (JAX counterpart:
+qcqp_tpu/parallel/scenarios.py).
 
 This is the production serving path: instances stream from the threaded
 binary problem bank (native.bank_load) onto the card, and every scenario
@@ -30,7 +30,20 @@ Deviations from the JAX package, on purpose:
     0, ..., s-1, which is what solve_restarts draws for that form from a
     generator in the same state.  torch cannot replay jax.random.split
     (qcqp_tpu/parallel/scenarios.py:70), so tests feed both packages the
-    same starts through `_solve_from_starts`.
+    same starts through `_solve_from_starts`.  Over a mesh every rank
+    draws all S x R starts in that order and keeps its block, so a
+    sharded solve starts from the starts of the one-process solve.
+
+Over a mesh (parallel/mesh.Mesh, one process per device): in
+solve_scenarios(mesh=...) the restarts shard over `axis` and every rank
+returns every scenario's best point; in solve_scenarios_sharded the
+scenarios shard over `s_axis` too, each rank solves its S / s_size
+scenarios (one stacked K1 launch where CD runs through K1), the best
+point is reduced over `r_axis` only (one all_gather of S / s_size
+candidates of n + 3 numbers), and one all_gather over `s_axis` hands
+every rank all S results, as the JAX package's global array reads in
+one process.  A rank may load only its own scenarios from a bank
+(`scenario_block`, then forms_from_bank(path, start, batch)).
 """
 
 from __future__ import annotations
@@ -44,8 +57,9 @@ from .. import settings as s
 from ..convert import form_from_numpy
 from ..core import QCQPForm, default_device
 from ..solvers.coord_descent_fused import improve_coord_descent_fused_stack
-from .restarts import (_fused_default, best_point, fused_setups,
-                       improve_chain, suggest_batch)
+from .mesh import Mesh, block
+from .restarts import (_fused_default, best_point, candidate, fused_setups,
+                       improve_chain, pick_across, suggest_batch)
 
 
 def stack_forms(forms: List[QCQPForm]) -> QCQPForm:
@@ -79,11 +93,26 @@ def forms_from_bank(path: str, start: int = 0, batch: Optional[int] = None,
                            device=device, dtype=dtype)
 
 
+def _draw(form: QCQPForm, S: int, R: int, generator, suggest, keep=None,
+          rows=slice(None)):
+    """The S x R starts in scenario order (scenario s gets the (R, n)
+    draw after those of the scenarios before it), of which the scenarios
+    in `keep` (default: all) and the restarts in `rows` are returned.
+    `form` gives the shape, dtype and device (the scenarios share them)."""
+    out = []
+    for i in range(S):
+        xs = suggest_batch(form, R, generator, suggest)
+        if keep is None or i in keep:
+            out.append(xs[rows])
+    return torch.stack(out)
+
+
 def solve_scenarios(stacked: QCQPForm, num_restarts: int,
                     generator: Optional[torch.Generator] = None,
                     suggest: str = s.RANDOM,
                     improve: Union[str, List[str]] = s.COORD_DESCENT,
-                    mesh=None, better_tol: float = 1e-4, **kwargs):
+                    mesh: Optional[Mesh] = None, axis: str = "r",
+                    better_tol: float = 1e-4, **kwargs):
     """Solve S stacked instances with R = num_restarts restarts each.
 
     generator: a torch.Generator on the stack's device (default: seed 0);
@@ -92,28 +121,31 @@ def solve_scenarios(stacked: QCQPForm, num_restarts: int,
     whose suggest_batch gets no relaxation here
     (qcqp_tpu/parallel/restarts.py:83-93).  improve and kwargs as in
     solve_restarts; on a CUDA float32 stack the kernels run unless the
-    caller passes use_fused.  Returns (xs (S, n), fs (S,), viols (S,)).
+    caller passes use_fused.  mesh: the restarts shard over `axis` in
+    contiguous blocks (no padding, as in the JAX package), every rank
+    holds the whole stack.  Returns (xs (S, n), fs (S,), viols (S,)), on
+    every rank of a mesh.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "solve_scenarios(mesh=...) is not ported to qcqp_tpu_torch yet: "
-            "it comes with the distributed module")
     if generator is None:
         generator = torch.Generator(device=stacked.device).manual_seed(0)
-    S, n = stacked.P.shape[0], stacked.n
-    xs = torch.empty((S, num_restarts, n), dtype=stacked.dtype,
-                     device=stacked.device)
-    for i in range(S):
-        xs[i] = suggest_batch(scenario(stacked, i), num_restarts, generator,
-                              suggest)
-    return _solve_from_starts(stacked, xs, improve, better_tol, **kwargs)
+    S = stacked.P.shape[0]
+    first = scenario(stacked, 0)
+    if mesh is None:
+        xs = _draw(first, S, num_restarts, generator, suggest)
+        return _solve_from_starts(stacked, xs, improve, better_tol, **kwargs)
+    lo, hi = block(num_restarts, mesh.shape[axis], mesh.index(axis))
+    xs = _draw(first, S, num_restarts, generator, suggest,
+               rows=slice(lo, hi))
+    return _best_across(stacked, xs, improve, mesh, axis, num_restarts,
+                        better_tol, **kwargs)
 
 
-def _solve_from_starts(stacked: QCQPForm, xs: torch.Tensor,
-                       improve: Union[str, List[str]] = s.COORD_DESCENT,
-                       better_tol: float = 1e-4, **kwargs):
-    """solve_scenarios after the draw: the improve chain and the best point
-    of every scenario from the starts xs (S, R, n)."""
+def _improve_from_starts(stacked: QCQPForm, xs: torch.Tensor,
+                         improve: Union[str, List[str]] = s.COORD_DESCENT,
+                         **kwargs):
+    """The improve chain of every scenario from the starts xs (S, R, n):
+    CD as one stacked K1 launch where it runs through K1, every other
+    stage one scenario at a time with its own set-up."""
     if "use_fused" not in kwargs and _fused_default(stacked):
         kwargs["use_fused"] = True
     forms = [scenario(stacked, i) for i in range(stacked.P.shape[0])]
@@ -132,14 +164,90 @@ def _solve_from_starts(stacked: QCQPForm, xs: torch.Tensor,
         for i, (form, kw) in enumerate(zip(forms, per_form)):
             out[i] = improve_chain(form, xs[i], method, **kw)
         xs = out
-    best = [best_point(f, xs[i], better_tol) for i, f in enumerate(forms)]
+    return xs
+
+
+def _solve_from_starts(stacked: QCQPForm, xs: torch.Tensor,
+                       improve: Union[str, List[str]] = s.COORD_DESCENT,
+                       better_tol: float = 1e-4, **kwargs):
+    """solve_scenarios after the draw: the improve chain and the best point
+    of every scenario from the starts xs (S, R, n)."""
+    xs = _improve_from_starts(stacked, xs, improve, **kwargs)
+    best = [best_point(scenario(stacked, i), xs[i], better_tol)
+            for i in range(stacked.P.shape[0])]
     return tuple(torch.stack(col) for col in zip(*best))
 
 
+def _best_across(stacked: QCQPForm, xs: torch.Tensor, improve, mesh: Mesh,
+                 axis: str, total: int, better_tol: float, **kwargs):
+    """This rank's block xs (S, Rl, n) of each scenario's `total` restarts
+    through the improve chain, then each scenario's best point across
+    `axis` (one all_gather of S candidates)."""
+    S, n = stacked.P.shape[0], stacked.n
+    if xs.shape[1]:
+        xs = _improve_from_starts(stacked, xs.contiguous(), improve,
+                                  **kwargs)
+        cand = torch.stack([candidate(scenario(stacked, i), xs[i],
+                                      better_tol) for i in range(S)])
+    else:
+        cand = xs.new_zeros((S, n + 3))
+    return pick_across(cand, mesh, axis, total)
+
+
+def scenario_block(num_scenarios: int, mesh: Mesh, s_axis: str = "s"):
+    """(start, batch): the scenarios this rank solves in
+    solve_scenarios_sharded, for forms_from_bank(path, start, batch)."""
+    s_size = mesh.shape[s_axis]
+    if num_scenarios % s_size:
+        raise ValueError(f"S={num_scenarios} not a multiple of the "
+                         f"{s_axis} axis ({s_size})")
+    lo, hi = block(num_scenarios, s_size, mesh.index(s_axis))
+    return lo, hi - lo
+
+
 def solve_scenarios_sharded(stacked: QCQPForm, num_restarts: int,
-                            generator=None, mesh=None, **kwargs):
-    """The scenario axis sharded over a 2-D mesh
-    (qcqp_tpu/parallel/scenarios.py:76): not ported yet."""
-    raise NotImplementedError(
-        "solve_scenarios_sharded is not ported to qcqp_tpu_torch yet: it "
-        "comes with the distributed module")
+                            generator: Optional[torch.Generator],
+                            mesh: Mesh, s_axis: str = "s", r_axis: str = "r",
+                            suggest: str = s.RANDOM,
+                            improve: Union[str, List[str]] = s.COORD_DESCENT,
+                            better_tol: float = 1e-4,
+                            num_scenarios: Optional[int] = None, **kwargs):
+    """Solve S stacked instances with the scenario axis sharded too
+    (module docstring): scenarios over `s_axis`, restarts over `r_axis`.
+
+    stacked: all S instances, or (with num_scenarios=S) only this rank's
+    block of them (`scenario_block`).  S must be a multiple of the s-axis
+    size (ValueError otherwise); num_restarts pads to a multiple of the
+    r-axis size.  generator: as in solve_scenarios, the same seed on every
+    rank.  Returns (xs (S, n), fs (S,), viols (S,)) on every rank.
+    """
+    S = stacked.P.shape[0] if num_scenarios is None else num_scenarios
+    start, batch = scenario_block(S, mesh, s_axis)
+    if num_scenarios is None:
+        stacked = QCQPForm(*(a[start:start + batch] for a in stacked))
+    elif stacked.P.shape[0] != batch:
+        raise ValueError(f"this rank's block holds {batch} of the {S} "
+                         f"scenarios, the stack {stacked.P.shape[0]}")
+    r_size = mesh.shape[r_axis]
+    R = -(-num_restarts // r_size) * r_size
+    if generator is None:
+        generator = torch.Generator(device=stacked.device).manual_seed(0)
+    lo, hi = block(R, r_size, mesh.index(r_axis))
+    xs = _draw(scenario(stacked, 0), S, R, generator, suggest,
+               keep=range(start, start + batch), rows=slice(lo, hi))
+    return _sharded_from_starts(stacked, xs, mesh, s_axis, r_axis, R,
+                                improve, better_tol, **kwargs)
+
+
+def _sharded_from_starts(local: QCQPForm, xs: torch.Tensor, mesh: Mesh,
+                         s_axis: str, r_axis: str, total: int,
+                         improve=s.COORD_DESCENT, better_tol: float = 1e-4,
+                         **kwargs):
+    """solve_scenarios_sharded after the draw: this rank's scenarios
+    `local` and its block xs (S / s_size, R / r_size, n) of their starts;
+    the best points reduced over `r_axis`, then gathered over `s_axis`."""
+    x, f, v = _best_across(local, xs, improve, mesh, r_axis, total,
+                           better_tol, **kwargs)
+    res = mesh.all_gather(torch.cat([x, f[:, None], v[:, None]], 1), s_axis)
+    res = res.reshape(-1, local.n + 2)
+    return res[:, :-2], res[:, -2], res[:, -1]

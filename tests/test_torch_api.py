@@ -129,8 +129,9 @@ def test_methods_outside_the_slice_raise():
     """Every method of the JAX handler runs now: SPECTRAL and IPOPT match
     the JAX package from the same point (the spectral bound and point, and
     the IPOPT improve of the same start, 1e-6 relative), and run through
-    QCQP.solve.  The mesh (the distributed module) and unknown names
-    still raise."""
+    QCQP.solve.  A mesh (the distributed module) runs too: a mesh of this
+    process alone gives the solve without one; one larger than the
+    process world and unknown names raise."""
     jprob, jx, _, _ = boolean_ls(jqt)
     prob, x, _, _ = boolean_ls(tqt)
     jh, h = jqt.QCQP(jprob), tqt.QCQP(prob, device="cpu")
@@ -149,8 +150,13 @@ def test_methods_outside_the_slice_raise():
     for kw in (dict(improve=tqt.IPOPT), dict(suggest=tqt.SPECTRAL)):
         f, v = h.solve(num_restarts=4, **kw)
         assert np.isfinite(f) and np.isfinite(v)
-    with pytest.raises(NotImplementedError, match="distributed module"):
-        tqt.solve_restarts(h.qcqp_form, 4, mesh=object())
+    from qcqp_tpu_torch.parallel import Mesh, make_mesh
+    runs = [tqt.solve_restarts(h.qcqp_form, 4, torch.Generator()
+                               .manual_seed(2), num_iters=3, **kw)
+            for kw in ({}, {"mesh": make_mesh()})]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    with pytest.raises(ValueError, match="need 2 processes"):
+        tqt.solve_restarts(h.qcqp_form, 4, mesh=Mesh([("r", 2)]))
     with pytest.raises(ValueError):
         h.suggest("nope")
     with pytest.raises(ValueError):

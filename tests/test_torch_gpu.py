@@ -1,6 +1,8 @@
 """The CUDA kernels K1 to K5 on the card, against their plain PyTorch
-versions, and the SDR suggest on the card.  Marked `gpu`: without a CUDA
-device every test skips.  This file imports neither JAX nor the JAX
+versions, the SDR suggest on the card, and the distributed module on one
+card (worker processes: an NCCL world of one, two gloo ranks on cuda:0,
+and the refusal of two NCCL ranks on one card).  Marked `gpu`: without a
+CUDA device every test skips.  This file imports neither JAX nor the JAX
 package, so it also runs on a machine that has only PyTorch:
 
     python -m pytest --noconftest -q tests/test_torch_gpu.py
@@ -739,3 +741,116 @@ def test_nlp_card_float64_matches_cpu(cuda):
     xg = improve_nlp(card, torch.from_numpy(X0).to(cuda)).cpu().numpy()
     np.testing.assert_allclose(xg[determined], xc[0][determined], rtol=0,
                                atol=1e-7)
+
+
+# The distributed module on one card: worker processes
+# (tests/torch_distributed_worker.py) join a process group and compute on
+# cuda:0.  NCCL takes one rank a card, so the two-rank run uses gloo.
+
+def _dist_form():
+    rng = np.random.default_rng(21)
+    A = rng.standard_normal((9, 12, 12)) / np.sqrt(12)
+    P = 0.5 * (A + np.swapaxes(A, -1, -2))
+    q = rng.standard_normal((9, 12)) / np.sqrt(12)
+    r = rng.standard_normal(9)
+    return [P, q, r, rng.random(8) < 0.5]
+
+
+def _dist_run(tmp_path, nproc, backend, cases):
+    from qcqp_tpu_torch.kernels import _build
+    from .torch_distributed_worker import run_workers
+    _build.library()                 # built once here, loaded by the workers
+    return run_workers(nproc, cases, str(tmp_path), device="cuda:0",
+                       backend=backend, timeout=300.0, pg_timeout=120.0)
+
+
+def test_nccl_world_of_one_equals_one_process(cuda, tmp_path):
+    """solve_restarts(mesh=make_mesh()) in an NCCL world of one on cuda:0
+    equals solve_restarts without a mesh, bit for bit, through one K1
+    launch."""
+    from qcqp_tpu_torch.convert import form_from_numpy
+    from qcqp_tpu_torch.parallel import restarts
+    arrays = _dist_form()
+    case = {"name": "cd", "kind": "restarts", "arrays": arrays,
+            "dtype": "float32", "R": 256, "seed": 5,
+            "kw": {"num_iters": 10}}
+    got = _dist_run(tmp_path, 1, "nccl", [case])[0]["cd"]
+    assert got["launches"] == {"k1": 1, "k3": 0, "k4": 0}
+    form = form_from_numpy(*arrays, device="cuda", dtype=torch.float32)
+    x, f, v = restarts.solve_restarts(
+        form, 256, torch.Generator(device="cuda").manual_seed(5),
+        num_iters=10)
+    assert np.array_equal(got["x"], x.cpu().numpy())
+    assert got["f"] == f.item() and got["v"] == v.item()
+
+
+class _Gathered:
+    """Two ranks' candidates stacked in one process: what pick_across's
+    all_gather returns on the ranks."""
+
+    def __init__(self, parts):
+        self.parts = parts
+
+    def all_gather(self, t, axis):
+        return self.parts
+
+
+def test_gloo_two_ranks_on_one_card_run_the_kernels(cuda, tmp_path):
+    """Two gloo ranks, both on cuda:0: CD (K1), ADMM (K3, two phases) and
+    DCCP (K4, one 64-lane tile a rank) each run once a rank on the rank's
+    block; each block equals those rows of the one-process chain bit for
+    bit, and the best point, the same on both ranks, is the pick of the
+    two blocks' candidates bit for bit.  Against the one-process best it
+    holds to 1e-5 relative in f, with the same violation bucket: the
+    objective is an (R, n) x (n, n) cuBLAS product whose rows' rounding
+    depends on R (PERF.md)."""
+    from qcqp_tpu_torch import settings as s
+    from qcqp_tpu_torch.convert import form_from_numpy
+    from qcqp_tpu_torch.core import violation_bucket
+    from qcqp_tpu_torch.parallel import restarts
+    arrays = _dist_form()
+    runs = {"cd": (s.COORD_DESCENT, 256, {"num_iters": 10},
+                   {"k1": 1, "k3": 0, "k4": 0}),
+            "admm": (s.ADMM, 128, {"num_iters": 20},
+                     {"k1": 0, "k3": 2, "k4": 0}),
+            "dccp": (s.DCCP, 128, {"max_iter": 4},
+                     {"k1": 0, "k3": 0, "k4": 1})}
+    cases = [{"name": name, "kind": "restarts", "arrays": arrays,
+              "dtype": "float32", "R": R, "seed": 7,
+              "kw": dict(kw, improve=improve)}
+             for name, (improve, R, kw, _) in runs.items()]
+    ranks = _dist_run(tmp_path, 2, "gloo", cases)
+    form = form_from_numpy(*arrays, device="cuda", dtype=torch.float32)
+    for name, (improve, R, kw, launches) in runs.items():
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        xs = restarts.suggest_batch(form, R, gen)
+        full = restarts.improve_chain(
+            form, xs, improve,
+            **restarts.fused_setups(form, improve, dict(kw, use_fused=True)))
+        cands = torch.stack([restarts.candidate(form, h)
+                             for h in full.chunk(2)])
+        pick = restarts.pick_across(cands[0], _Gathered(cands), "r", R)
+        x1, f1, v1 = restarts.best_point(form, full)
+        for rank in ranks:
+            got = rank[name]
+            assert got["launches"] == launches
+            c = got["coords"]["r"]
+            half = full[c * R // 2:(c + 1) * R // 2].cpu().numpy()
+            assert np.array_equal(got["shard"], half)
+            for key, want in zip(("x", "f", "v"), pick):
+                assert np.array_equal(got[key], want.cpu().numpy())
+            assert (violation_bucket(torch.tensor(got["v"]))
+                    == violation_bucket(v1.cpu()))
+            assert abs(float(got["f"]) - f1.item()) <= 1e-5 * abs(f1.item())
+
+
+def test_two_nccl_ranks_on_one_card_raise(cuda, tmp_path):
+    """Two NCCL ranks on cuda:0 both fail in initialize with the message,
+    before any collective; no fallback to gloo."""
+    from .torch_distributed_worker import finish, start_workers
+    job = {"device": "cuda:0", "backend": "nccl", "timeout": 60.0,
+           "cases": []}
+    results = finish(start_workers(2, job, str(tmp_path)), timeout=180.0)
+    for rc, _, err in results:
+        assert rc != 0
+        assert "one card per process" in err

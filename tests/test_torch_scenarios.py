@@ -373,31 +373,43 @@ def test_serving_example_at_its_own_size(tmp_path):
 
 def test_errors(monkeypatch):
     """SDR and SPECTRAL suggests raise ValueError (no relaxation reaches the
-    batch suggest, as in the JAX package), the sharded solve and a mesh
-    raise NotImplementedError, and forms_from_bank without a card and
-    without device="cpu" raises RuntimeError."""
+    batch suggest, as in the JAX package), a mesh larger than the process
+    world and a stack that is not this rank's block of the scenarios raise
+    ValueError, and forms_from_bank without a card and without
+    device="cpu" raises RuntimeError."""
     stack = tscen.stack_forms([_port_form(f) for f in _jax_forms(seeds=[0])])
     for suggest in (tqt.SDR, tqt.SPECTRAL, "nope"):
         with pytest.raises(ValueError):
             tscen.solve_scenarios(stack, 4, suggest=suggest)
     with pytest.raises(ValueError):
         tscen.solve_scenarios(stack, 4, improve="nope")
-    with pytest.raises(NotImplementedError, match="distributed module"):
-        tscen.solve_scenarios_sharded(stack, 4)
-    with pytest.raises(NotImplementedError, match="distributed module"):
-        tscen.solve_scenarios(stack, 4, mesh=object())
+    with pytest.raises(ValueError, match="need 2 processes"):
+        tscen.solve_scenarios(stack, 4, mesh=tscen.Mesh([("r", 2)]))
+    with pytest.raises(ValueError, match="block holds 3 of the 3"):
+        tscen.solve_scenarios_sharded(
+            stack, 4, None, tscen.Mesh([("s", 1), ("r", 1)]),
+            num_scenarios=3)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device=\"cpu\""):
         tscen.forms_from_bank("no-such-bank.qcqp")
 
 
 def test_parallel_exports_match_jax_where_ported():
+    """qcqp_tpu_torch.parallel exports every public name of
+    qcqp_tpu.parallel, and launch every entry point of its launch."""
+    import qcqp_tpu.parallel as jparallel
+    from qcqp_tpu.parallel import launch as jlaunch
     from qcqp_tpu_torch import parallel
-    names = {"best_point", "suggest_batch", "improve_chain", "solve_restarts",
-             "stack_forms", "solve_scenarios", "solve_scenarios_sharded"}
-    assert all(hasattr(parallel, n) for n in names)
-    from qcqp_tpu import parallel as jparallel
-    assert all(hasattr(jparallel, n) for n in names)
+    from qcqp_tpu_torch.parallel import launch
+    names = {n for n in dir(jparallel) if not n.startswith("_")} - {
+        "launch", "mesh", "mesh2d", "restarts", "scenarios"}
+    assert {"make_mesh", "admm_phase1_sharded", "make_mesh_2d",
+            "improve_admm_2d", "solve_restarts_2d", "solve_scenarios_sharded",
+            "best_point", "stack_forms"} <= names
+    assert [n for n in sorted(names) if not hasattr(parallel, n)] == []
+    for n in ("initialize", "is_initialized", "is_coordinator",
+              "global_mesh", "solve_restarts_distributed", "shutdown"):
+        assert callable(getattr(jlaunch, n)) and callable(getattr(launch, n))
 
 
 _CITATION = re.compile(r"qcqp_tpu/[\w/.]+\.\w+:\d+")
@@ -417,7 +429,8 @@ def _non_docstring_strings(path):
 
 def test_port_reads_no_file_of_the_jax_package():
     """The native source the port builds is its own copy, and no .py file
-    of the port (nor chip_smoke.py) builds a path into qcqp_tpu/: outside
+    of the port (nor chip_smoke.py, nor the port's test worker) builds a
+    path into qcqp_tpu/: outside
     docstrings, "qcqp_tpu" appears only as qcqp_tpu_torch or in a
     file:line citation."""
     pkg = os.path.join(REPO, "qcqp_tpu_torch")
@@ -426,7 +439,8 @@ def test_port_reads_no_file_of_the_jax_package():
     assert os.path.exists(src)
     files = sorted(glob.glob(os.path.join(pkg, "**", "*.py"),
                              recursive=True))
-    files.append(os.path.join(REPO, "chip_smoke.py"))
+    files += [os.path.join(REPO, "chip_smoke.py"),
+              os.path.join(REPO, "tests", "torch_distributed_worker.py")]
     bad = [(os.path.relpath(f, REPO), line, text)
            for f in files for line, text in _non_docstring_strings(f)
            if re.search(r"qcqp_tpu(?!_torch)", _CITATION.sub("", text))]
