@@ -51,13 +51,13 @@ launch no kernel, go first (`plain_runs`: the plain versions that phases
                probes the plain version counts there size K1's bound;
   6. k2_route the default CD route above n = 128: bench.py's form at
                BENCH_N=256, BENCH_M=20 (seed 0) through solve_restarts at
-               R = 10,240, 10 sweeps, with no mega= argument, so that
-               `_mega_fits` sends phase 1 to K2 once per coordinate: a
-               one-sweep warm-up and one timed solve, restarts/s, best
-               (f, v), K1 (none) and K2 (n a sweep) launches; K2 alone on
-               one of the route's launches, against its plain version
-               and timed;
-               the route at R = 256, 2 sweeps, every restart bit for bit
+               R = 10,240, with no mega= argument, so that `_mega_fits`
+               sends phase 1 to K2 once per coordinate: a one-sweep
+               warm-up and one timed solve of 4 sweeps,
+               restarts/s, best (f, v), K1 (none) and K2 (n a sweep)
+               launches; K2 alone on one of the route's launches, against
+               its plain version and timed;
+               the route at R = 256, 1 sweep, every restart bit for bit
                against the same route with K2's plain version in K2's
                place (swapped in this script only);
   7. k3        K3 (csrc/admm_impl.cuh, one warp per restart) against its
@@ -76,7 +76,7 @@ launch no kernel, go first (`plain_runs`: the plain versions that phases
                launch geometry on the ADMM path;
   8. admm_path solve_restarts(improve=ADMM, num_iters=50) on the bench form
                at R = 1,024 and 10,240 from a seeded torch.Generator: ms
-               per solve (3 after a warm-up), restarts/s, best (f, v), K3's
+               per solve (2 after a warm-up), restarts/s, best (f, v), K3's
                launch count and the host set-up time; then, at each R, K3
                alone and its plain version on the first timed solve's
                starts, both timed: K3 must give that solve's best point
@@ -147,26 +147,52 @@ launch no kernel, go first (`plain_runs`: the plain versions that phases
                and on S = 132 drifted n = 100 instances: ms, iterations/s,
                K5 launches, accept rate, worst residual.  No float64
                re-solve runs in this phase;
- 15. sdr_golden  solve_sdr(device="device") on the forms of
-               tests/tpu_smoke.py:107-128 (boolean LS 28.750, maxcut
-               -57.207, circle packing -5.000) and QCQP(prob).suggest(SDR)
-               on boolean LS, each accepted by the gate with no float64
-               re-solve; QCQP.solve(256, suggest=SDR, improve=COORD_DESCENT)
-               through K1 to 35.550; one solve_sdr_batch(psd_method="vec")
-               with its float64 fallback on the S = 16 bank, whose counter
-               must rise once per instance the gate rejects.
- 16. spectral  QCQP(prob).suggest(SPECTRAL) on boolean least squares
+ 15. sdr_golden  one solve_sdr_batch(psd_method="vec") with its float64
+               fallback on the S = 16 bank, whose counter must rise once
+               per instance the gate rejects (the SDR goldens moved to
+               phase 16, where the examples solve the same relaxations);
+ 16. tooling   the JAX package's examples and diagnostics on the card
+               (qcqp_tpu_torch/examples, diagnostics.py): (a) the five
+               examples through main() on the default device (CUDA
+               float32), their printed lines captured: the SDR goldens
+               28.750, 57.207, 5.000 and 1.970 within 2e-2, each accepted
+               on the first float32 attempt with no float64 re-solve (the
+               splitting loop's iterations, residuals and masked tail
+               reported), the sampler on the card; boolean least squares'
+               best of 256 SDR restarts through K1 within 2e-2 of 35.550;
+               the beamforming DCCP through K4 at violation
+               < BEAMFORMING_DCCP_VIOL and f <= 2.5; every (f, v)
+               finite; K1, K3 and K4 launched by each example whose chain
+               reaches them; the serving example (S = 8, n = m = 12:
+               bank write, forms_from_bank, solve_sdr_batch,
+               solve_scenarios in one K1 launch; every violation < 1e-2
+               and every objective at least its SDR bound - 1e-3) is
+               phase 19's (a); (b) cd_trace (2 sweeps), admm_trace (200
+               iterations) and ccp_trace (3 outers) on the bench form
+               from one numpy start, cd_trace on boolean least squares,
+               sdp_trace on phase 14's n = 100 SDR form (300
+               iterations), in float32: ADMM's and the SDP's held
+               against the CPU's float32 trace from the same start
+               (TRACE_RTOL; made by a CPU process started at the
+               beginning, `--cpu-traces`), CD's and CCP's to the
+               properties of tests/test_aux.py; (c) torch_profile
+               around one K1 solve
+               (R = 10,240) and one K3 ADMM solve (R = 1,024, 50
+               iterations): the trace JSON parses and lists as many
+               kernel events as the wrappers counted launches; timed
+               around one K1 solve reads at least its CUDA-event time;
+ 17. spectral  QCQP(prob).suggest(SPECTRAL) on boolean least squares
                (phase 4's problem) in float32 on the card: the route
                (first attempt, ns_steps=20 retry or float64 re-solve),
                each splitting loop's iterations and residuals, ms and
-               bound, which must be finite, at most phase 15's SDR bound
+               bound, which must be finite, at most phase 16's SDR bound
                and within 2e-2 of the JAX package's float64 bound (a
                literal); then solve_restarts(256, suggest=SPECTRAL,
                improve=COORD_DESCENT) from the handler's point, one K1
                launch (its count set to 0 before, read after);
- 17. nlp_path  improve_nlp (the IPOPT improve) on the bench form in
+ 18. nlp_path  improve_nlp (the IPOPT improve) on the bench form in
                float32, RANDOM starts, at R = 128 and 10,240: a short
-               warm-up and 3 timed improves (1 at 10,240), ms, restarts/s,
+               warm-up and 1 timed improve at each R, ms, restarts/s,
                best (f, v),
                the share of lanes at violation < 1e-3, the lanes whose
                violation overflowed, Newton trips and host reads a
@@ -176,13 +202,15 @@ launch no kernel, go first (`plain_runs`: the plain versions that phases
                short schedule where the CPU's lanes are determined; the
                handler's improve(IPOPT) on boolean least squares at
                violation < 1e-4.
- 18. scenarios the scenario serving path (qcqp_tpu_torch/parallel/
+ 19. scenarios the scenario serving path (qcqp_tpu_torch/parallel/
                scenarios.py) in float32: (a) examples/scenario_serving.py
-               at its own size (S = 8 boolean least-squares instances,
-               n = m = 12): bank write, forms_from_bank, solve_sdr_batch
-               on its default route, solve_scenarios with 64 restarts
-               through one K1 launch, every violation < 1e-2 and every
-               objective at least its SDR bound - 1e-3; (b) the serving
+               at its own size, run in phase 16 through
+               qcqp_tpu_torch.examples.scenario_serving.main (S = 8
+               boolean least-squares instances, n = m = 12): bank write,
+               forms_from_bank, solve_sdr_batch on its default route,
+               solve_scenarios with 64 restarts through one K1 launch,
+               every violation < 1e-2 and every objective at least its
+               SDR bound - 1e-3; (b) the serving
                size: S = 132 bench forms (n = 100, m = 50, instance s
                from seed s, its own equality pattern) as a float64 bank
                (about 539 MB, in a temporary directory), loaded back in
@@ -200,7 +228,7 @@ launch no kernel, go first (`plain_runs`: the plain versions that phases
                scenarios, each equal to solve_restarts on its form from
                the same starts, bit for bit, K3 launched twice a scenario
                (its two phases) and K4 once.
- 19. distributed the distributed module (qcqp_tpu_torch/parallel/) on the
+ 20. distributed the distributed module (qcqp_tpu_torch/parallel/) on the
                one card, each rank a process of its own (`python3
                chip_smoke.py --dist-worker SPEC`, all three started
                together once the kernels are built, their output in files
@@ -216,14 +244,18 @@ launch no kernel, go first (`plain_runs`: the plain versions that phases
                block equal to those rows of the one-process chain bit for
                bit and the best point to the one-process solve's (CD's
                also to (a)); solve_scenarios_sharded on an (s = 2, r = 1)
-               mesh, each rank loading its 66 scenarios of phase 18's
+               mesh, each rank loading its 66 scenarios of phase 19's
                bank, one K1 launch over 66 x 64 lanes, all 132 results on
-               both ranks equal to phase 18's first timed solve bit for
+               both ranks equal to phase 19's first timed solve bit for
                bit; solve_restarts_2d on an (r = 1, c = 2) mesh, R = 1,024,
                50 iterations, one all_reduce an iteration, its best point
                the same on both ranks, in quality parity with
                improve_admm_batch on the same starts (tests/test_mesh2d.py:
-               38-45 and 100-101).  Two ranks time-slicing one
+               38-45 and 100-101); every rank's collectives (Mesh.calls
+               and Mesh.bytes) equal to the analytic inventory: one
+               all_gather of n + 3 float32 numbers a solve for the best
+               point, and one all_reduce of (R / nr) x n float32 numbers
+               an iteration for the 2-D ADMM.  Two ranks time-slicing one
                card give no scaling figure: their times are what they are.
 
 Then the seconds each phase took, the card's line from nvidia-smi, the
@@ -256,6 +288,7 @@ N, M, R_MAIN, SWEEPS = 100, 50, 10240, 10     # bench.py:24-27
 R_K1_CHECK, K1_CHECK_SWEEPS = 1024, 1
 R_K3_CHECK, ADMM_ITERS = 1024, 50             # bench.py:209-210
 R_ADMM = (1024, 10240)                        # bench.py's ADMM shape; 10^4
+ADMM_REPEATS = 2                              # timed solves per R
 R_ADMM_GOLDEN = 256
 R_CCP = (128, 10240)                          # bench.py:240; 10^4
 CCP_REPEATS = {128: 1, 10240: 1}              # timed solves per R
@@ -495,18 +528,20 @@ def phase_k2(bench_is_eq):
 # The default CD route above n = 128 (`_mega_fits` false: phase 1 through
 # K2 once per coordinate): bench.py's form at BENCH_N=256, BENCH_M=20.
 N_K2, M_K2 = 256, 20
-R_K2_CHECK, K2_CHECK_SWEEPS = 256, 2
+R_K2_CHECK, K2_CHECK_SWEEPS = 256, 1
 K2_ROUTE_REPEATS = 1            # timed solves of the route, after a warm-up
+K2_ROUTE_SWEEPS = 4             # the timed solve's sweeps
 
 
 def phase_k2_route(arrays):
-    """solve_restarts on the n = 256, m = 20 form at R = 10,240, 10 sweeps,
-    with no mega= argument: one warm-up (one sweep) and one timed solve, K1
-    0 launches and K2 at least n; K2 alone on the inputs of one of the
-    route's launches (coordinate n/2 of the warm-up's sweep), against its
-    plain version and timed; then the route at R = 256, 2 sweeps, every
-    restart bit for bit against the same route with K2's plain version in
-    K2's place (swapped here only)."""
+    """solve_restarts on the n = 256, m = 20 form at R = 10,240, with no
+    mega= argument: one warm-up (one sweep) and one timed solve of
+    K2_ROUTE_SWEEPS sweeps, K1 0 launches and K2 at least n; K2 alone on
+    the inputs of one of the route's launches (coordinate n/2 of the
+    warm-up's sweep), against its plain version and timed; then the route
+    at R = 256, K2_CHECK_SWEEPS sweeps, every restart bit for bit against
+    the same route with K2's plain version in K2's place (swapped here
+    only)."""
     import torch
     from qcqp_tpu_torch.convert import form_from_numpy
     from qcqp_tpu_torch.kernels import onevar_kernel as k2
@@ -541,7 +576,7 @@ def phase_k2_route(arrays):
     k2.phase1_coordinate_update.launches = 0
     times, results = [], []
     for seed in range(1, 1 + K2_ROUTE_REPEATS):
-        ms, res = host_ms(lambda: solve(seed))
+        ms, res = host_ms(lambda: solve(seed, K2_ROUTE_SWEEPS))
         times.append(ms)
         results.append(res)
     launches = {"k1": two_phase_sweeps.launches,
@@ -579,7 +614,7 @@ def phase_k2_route(arrays):
     f_best, v_best = float(results[0][1]), float(results[0][2])
     b = k2_bound(alone["probes"], M_K2, E, alone["bytes"])
     emit({"phase": "k2_route", "n": N_K2, "m": M_K2, "E": E, "R": R_MAIN,
-          "sweeps": SWEEPS, "ms_per_solve": times,
+          "sweeps": K2_ROUTE_SWEEPS, "ms_per_solve": times,
           "restarts_per_s": R_MAIN / ms_route * 1e3,
           "best_f": f_best, "best_viol": v_best,
           "launches": launches,
@@ -1135,15 +1170,15 @@ def phase_admm_path(arrays):
     runs = {}
     for R in R_ADMM:
         times, results = [], []
-        for seed in (1, 2, 3):
+        for seed in range(1, 1 + ADMM_REPEATS):
             ms, res = host_ms(lambda: solve(seed, R))
             times.append(ms)
             results.append(res)
         runs[R] = (times, results)
     launches = admm_phase.launches
-    if launches != 2 * 3 * len(R_ADMM):
+    if launches != 2 * ADMM_REPEATS * len(R_ADMM):
         raise AssertionError(f"ADMM path: {launches} K3 launches, expected "
-                             f"{2 * 3 * len(R_ADMM)}")
+                             f"{2 * ADMM_REPEATS * len(R_ADMM)}")
     for _, results in runs.values():
         for (x, f, v) in results:
             if not (torch.isfinite(x).all() and x.shape == (N,)
@@ -1893,95 +1928,15 @@ def phase_sdr_path():
     return {"launches": launches, "acc16": acc16, "bank16": bank16}
 
 
-def maxcut_arrays(n=25, p=0.2):
-    """tests/tpu_smoke.py:70-89 (np.random.seed(1))."""
-    np.random.seed(1)
-    W = np.random.uniform(0, 1, (n, n))
-    for i in range(n):
-        W[i, i] = 1
-        for j in range(i + 1, n):
-            W[j, i] = W[i, j]
-    W = (W < p).astype(float)
-    P = np.zeros((n + 1, n, n))
-    P[0] = 0.25 * W
-    P[1:, np.arange(n), np.arange(n)] = np.eye(n)
-    q = np.zeros((n + 1, n))
-    r = -np.ones(n + 1)
-    r[0] = -0.25 * W.sum()
-    return P, q, r, np.ones(n, bool)
-
-
-def circle_form():
-    """tests/tpu_smoke.py:54-67 through the port's modeling layer."""
-    import torch
-    import qcqp_tpu_torch as qt
-    X, rad = qt.Variable(2, 5), qt.Variable()
-    cons = [X >= rad, X <= 10.0 - rad, rad >= 0]
-    for i in range(5):
-        for j in range(i + 1, 5):
-            cons.append(qt.square(2 * rad)
-                        <= qt.sum_squares(X[:, i] - X[:, j]))
-    return qt.canonicalize(qt.Problem(qt.Maximize(rad), cons),
-                           torch.float32, "cuda")[0]
-
-
 def phase_sdr_golden(bank16, acc16):
-    """The SDR goldens on the card with no float64 re-solve, the handler's
-    SDR suggest, SDR starts through QCQP.solve and K1, and the batch
-    fallback's count on the S = 16 vec bank."""
+    """The batch fallback's count on the S = 16 vec bank: one
+    solve_sdr_batch(psd_method="vec") with its float64 fallback, whose
+    counter must rise once per instance the gate rejects.  (The SDR
+    goldens on the card and the handler's SDR suggest and solve run in
+    phase tooling, through the examples.)"""
     import logging
     import torch
-    import qcqp_tpu_torch as qt
-    from qcqp_tpu_torch.convert import form_from_numpy
-    from qcqp_tpu_torch.kernels.cd_sweep_kernel import two_phase_sweeps
     from qcqp_tpu_torch.solvers import sdp
-    out = {}
-    resolves = sdp.solve_sdr.resolves
-    for name, form, golden, tol in (
-            ("boolean_ls", form_from_numpy(*boolean_ls_arrays(),
-                                           device="cuda",
-                                           dtype=torch.float32),
-             28.750, 2e-2),
-            ("maxcut", form_from_numpy(*maxcut_arrays(), device="cuda",
-                                       dtype=torch.float32), -57.207, 5e-2),
-            ("circle", circle_form(), -5.000, 5e-2)):
-        tail = sdp.solve_sdp.masked_tail
-        ms, sol = host_ms(lambda: sdp.solve_sdr(form, device="device",
-                                                check=False, full=True))
-        accepted = sdp._accepted(form, sol, sdp._unscaled_rel_viol)
-        out[name] = {"bound": float(sol.objective), "golden": golden,
-                     "rp": float(sol.primal_res), "rd": float(sol.dual_res),
-                     "iterations": int(sol.iterations), "ms": ms,
-                     "masked_tail_iterations":
-                         sdp.solve_sdp.masked_tail - tail,
-                     "accepted": accepted}
-        if not (accepted and abs(out[name]["bound"] - golden) <= tol):
-            raise AssertionError(f"SDR golden {name}: {out[name]}")
-    A, b = boolean_ls_data()
-    n = A.shape[1]
-    x = qt.Variable(n)
-    h = qt.QCQP(qt.Problem(qt.Minimize(qt.sum_squares(A @ x - b)),
-                           [qt.square(x) == 1]))
-    if h.device.type != "cuda" or h.qcqp_form.dtype != torch.float32:
-        raise AssertionError("the handler did not default to CUDA float32")
-    ms, _ = host_ms(lambda: h.suggest(qt.SDR))
-    out["suggest_sdr"] = {"sdr_bound": h.sdr_bound, "ms": ms}
-    if abs(h.sdr_bound - 28.750) > 2e-2 or not h.mu.is_cuda:
-        raise AssertionError(f"QCQP.suggest(SDR): {out['suggest_sdr']}")
-    signs = np.array([[1.0 if bits >> i & 1 else -1.0 for i in range(n)]
-                      for bits in range(1 << n)])
-    brute = float(np.min(np.sum((signs @ A.T - b) ** 2, axis=1)))
-    before = two_phase_sweeps.launches
-    f, v = h.solve(num_restarts=256, suggest=qt.SDR,
-                   improve=qt.COORD_DESCENT, num_iters=50)
-    launched = two_phase_sweeps.launches - before
-    out["solve_sdr_cd"] = {"objective": f, "violation": v,
-                           "brute_force": brute, "k1_launches": launched}
-    if not (v < 1e-2 and abs(f - 35.550) <= 2e-2) or launched < 1:
-        raise AssertionError(f"QCQP.solve(suggest=SDR): {out['solve_sdr_cd']}")
-    out["f64_resolves"] = sdp.solve_sdr.resolves - resolves
-    if out["f64_resolves"]:
-        raise AssertionError(f"{out['f64_resolves']} float64 re-solves")
 
     # the batch fallback: one call with fallback on, at the budget of the
     # sdr_path phase's fallback-free run of the same bank; each instance
@@ -2005,17 +1960,402 @@ def phase_sdr_golden(bank16, acc16):
         log.removeHandler(handler)
         log.setLevel(level)
     counted = sdp.solve_sdr_batch.fallbacks - before
-    out["batch_fallback"] = {
+    out = {"batch_fallback": {
         "S": int(bank16.P.shape[0]), "max_iters": SDR_BANK_ITERS,
         "fallbacks": counted,
         "logged": Count.n, "rejected_in_sdr_path": int((~acc16).sum()),
         "accept_rate_after": float(acc.mean()),
         "max_res_after": float(torch.maximum(rp, rd).max()),
-        "ms_with_fallbacks": ms}
+        "ms_with_fallbacks": ms}}
     emit({"phase": "sdr_golden", **out})
     if counted != Count.n or counted != int((~acc16).sum()):
         raise AssertionError(f"batch fallback: {out['batch_fallback']}")
-    return h.sdr_bound
+
+
+# phase tooling: the JAX package's examples on the card through
+# qcqp_tpu_torch.examples, with the SDR goldens of tests/test_api_examples.py
+# and BASELINE.md (the maximize problems report the un-negated bound)
+EXAMPLE_SDR_GOLDENS = {"boolean_least_squares": 28.750, "maxcut": 57.207,
+                       "circle_packing": 5.000,
+                       "secondary_user_beamforming": 1.970}
+GOLDEN_TOL = 2e-2
+BLS_BEST = 35.550                       # brute force, 256 SDR restarts
+# the K1, K3 and K4 launches each example's chain must make: CD through
+# QCQP.solve and solve_scenarios (single-restart CD is the plain loop, as
+# in the JAX handler), ADMM and DCCP through the handler's kernel routes
+EXAMPLE_KERNELS = {"boolean_least_squares": ("k1", "k3", "k4"),
+                   "maxcut": ("k3", "k4"), "circle_packing": ("k3", "k4"),
+                   "secondary_user_beamforming": ("k3", "k4"),
+                   "scenario_serving": ("k1",)}
+# the beamforming DCCP on the card: K4 in float32 at the JAX handler's
+# accelerator defaults (5 Newton trips, inner_tol 1e-5, 40 inner trips)
+# ends at violation 7.1e-4; the JAX package's own Pallas kernel in float32
+# from one start ends at 6.9e-4 (interpret mode on the CPU), the port's
+# plain version at 6.9e-4; the golden's 1e-4 is the float64 route's
+# (tests/test_api_examples.py), held in tests/test_torch_example_*.py
+BEAMFORMING_DCCP_VIOL = 1e-3
+# the traces on the card: the bench form (n = 100, m = 50, seed 0) from
+# one numpy start; sdp_trace on sdr_path's n = 100 boolean-LS SDR form
+TRACE_CD_SWEEPS, TRACE_ADMM_ITERS, TRACE_CCP_OUTERS = 2, 200, 3
+TRACE_SDP_ITERS = 300
+# card against CPU, both float32, same start: the largest gap of a
+# history, relative to 1 + |CPU value|, for the traces that are determined
+# (in float64 the card meets the CPU to 2e-12 on both).  In float32 the
+# card's eighs (cuSOLVER) carry 4e-5 of error in the eigenvalues where
+# LAPACK's carry 1.4e-6 (ADMM's rho and projection bases, the SDP's cone
+# projection), and the histories part by up to 5.2e-3 (ADMM, 200
+# iterations) and 6.0e-3 (SDP, 300 iterations), where the CPU's float32
+# parts from its float64 by 5e-5.  CD's phase 1 and CCP's inner
+# splitting part at round-off, so those hold test_aux.py's properties.
+TRACE_RTOL = {"admm": 1e-2, "sdp": 1e-2}
+PROFILE_R_K3 = 1024
+
+
+def _kernel_counters():
+    from qcqp_tpu_torch.kernels.admm_kernel import admm_phase
+    from qcqp_tpu_torch.kernels.ccp_kernel import ccp_improve
+    from qcqp_tpu_torch.kernels.cd_sweep_kernel import two_phase_sweeps
+    return {"k1": two_phase_sweeps, "k3": admm_phase, "k4": ccp_improve}
+
+
+def _sdp_spy(solves):
+    """Wrap solvers/sdp.solve_sdp so that each splitting loop appends its
+    (dtype, iterations, residuals) to `solves`; returns the undo.
+    solve_sdp counts its masked tail on its module name: the spy carries
+    the count and the undo hands it back."""
+    from qcqp_tpu_torch.solvers import sdp
+    solve_sdp = sdp.solve_sdp
+
+    def spy(*a, **kw):
+        sol = solve_sdp(*a, **kw)
+        solves.append({"dtype": str(sol.X.dtype).replace("torch.", ""),
+                       "iterations": sol.iterations.tolist(),
+                       "rp": sol.primal_res.tolist(),
+                       "rd": sol.dual_res.tolist()})
+        return sol
+    spy.masked_tail = solve_sdp.masked_tail
+    sdp.solve_sdp = spy
+
+    def undo():
+        sdp.solve_sdp = solve_sdp
+        solve_sdp.masked_tail = spy.masked_tail
+    return undo
+
+
+def _run_example(name, **kw):
+    """One example's main() on its default device (the card), its printed
+    lines captured: the kernels' launches, the SDR solves and route, the
+    float64 re-solves and the wall time."""
+    import contextlib
+    import importlib
+    import io
+    from qcqp_tpu_torch.solvers import sdp
+    mod = importlib.import_module(f"qcqp_tpu_torch.examples.{name}")
+    counters = _kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    solves = []
+    undo = _sdp_spy(solves)
+    tail, resolves = sdp.solve_sdp.masked_tail, sdp.solve_sdr.resolves
+    fallbacks = sdp.solve_sdr_batch.fallbacks
+    sdp._solve_single.route = None
+    printed = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(printed):
+            ms, out = host_ms(lambda: mod.main(**kw))
+    finally:
+        undo()
+    out.update(ms=ms, printed=printed.getvalue().splitlines(),
+               launches={k: c.launches for k, c in counters.items()},
+               sdr_solves=solves, sdr_route=sdp._solve_single.route,
+               masked_tail_iterations=sdp.solve_sdp.masked_tail - tail,
+               f64_resolves=sdp.solve_sdr.resolves - resolves,
+               f64_batch_fallbacks=sdp.solve_sdr_batch.fallbacks
+               - fallbacks)
+    return out
+
+
+def _serving_example(workdir):
+    """(a) of phase scenarios: examples/scenario_serving.py at its own size
+    on the card (S = 8 boolean least-squares instances, n = m = 12),
+    through qcqp_tpu_torch.examples.scenario_serving.main: bank write
+    (float64), forms_from_bank (float32 on the card), solve_sdr_batch on
+    its default float32 route and solve_scenarios (64 restarts, CD through
+    one K1 launch), the last two timed apart."""
+    from qcqp_tpu_torch.examples import scenario_serving as ex
+    ms, real = {}, (ex.solve_sdr_batch, ex.solve_scenarios)
+
+    def timed_as(key, fn):
+        def call(*a, **kw):
+            ms[key], out = host_ms(lambda: fn(*a, **kw))
+            return out
+        return call
+    ex.solve_sdr_batch = timed_as("sdr_ms", real[0])
+    ex.solve_scenarios = timed_as("cd_ms", real[1])
+    try:
+        out = _run_example("scenario_serving", workdir=workdir)
+    finally:
+        ex.solve_sdr_batch, ex.solve_scenarios = real
+    out.update(ms)
+    return out
+
+
+def _check_example(name, out):
+    """The example's goldens and routes; returns the report (no handler,
+    no arrays) and the list of failed checks."""
+    pairs = {k: v for k, v in out.items()
+             if isinstance(v, tuple) and len(v) == 2 and k != "x_shape"}
+    rep = {k: out[k] for k in ("device", "dtype", "ms", "launches",
+                               "sdr_solves", "sdr_route",
+                               "masked_tail_iterations", "f64_resolves",
+                               "f64_batch_fallbacks", "printed")}
+    rep.update({k: list(v) for k, v in pairs.items()})
+    bad = []
+    if not (out["device"].startswith("cuda")
+            and out["dtype"] == "torch.float32"):
+        bad.append("not on the card in float32")
+    if not all(np.isfinite(v) for p in pairs.values() for v in p):
+        bad.append("a non-finite (f, v)")
+    missing = [k for k in EXAMPLE_KERNELS[name] if out["launches"][k] < 1]
+    if missing:
+        bad.append(f"no launch of {missing}")
+    if out["f64_resolves"]:
+        bad.append("a float64 re-solve")
+    if name in EXAMPLE_SDR_GOLDENS:
+        h = out["qcqp"]
+        rep.update(sdr_bound=h.sdr_bound,
+                   sdr_golden=EXAMPLE_SDR_GOLDENS[name])
+        if abs(h.sdr_bound - EXAMPLE_SDR_GOLDENS[name]) > GOLDEN_TOL:
+            bad.append("SDR golden")
+        # accepted by the gate on the first float32 attempt on the card,
+        # and the sampler's factors on the card
+        if out["sdr_route"] != "device" or len(out["sdr_solves"]) != 1:
+            bad.append("SDR route")
+        if not (h.mu.is_cuda and h._sigma_chol.is_cuda):
+            bad.append("SDR sampler not on the card")
+    if name == "boolean_least_squares":
+        A, b = boolean_ls_data()
+        n = A.shape[1]
+        signs = np.array([[1.0 if bits >> i & 1 else -1.0 for i in range(n)]
+                          for bits in range(1 << n)])
+        rep["brute_force"] = float(np.min(np.sum((signs @ A.T - b) ** 2,
+                                                 axis=1)))
+        f, v = out["best_of_256"]
+        if not (v < 1e-2 and abs(f - BLS_BEST) <= GOLDEN_TOL):
+            bad.append("best of 256")
+    if name == "secondary_user_beamforming":
+        f, v = out["dccp"]
+        if not (v < BEAMFORMING_DCCP_VIOL and f <= 2.5):
+            bad.append("beamforming DCCP")
+    if name == "scenario_serving":
+        rep.update({k: np.asarray(out[k]).tolist()
+                    for k in ("sdr_bounds", "best_f", "best_viol")})
+        rep.update(S=out["S"], n=out["n"], m=out["m"],
+                   sdr_ms=out["sdr_ms"], cd_ms=out["cd_ms"],
+                   sdr_max_residual=out["sdr_max_residual"],
+                   x_shape=list(out["x_shape"]))
+        if out["launches"]["k1"] != 1 or out["x_shape"] != (out["S"],
+                                                           out["n"]):
+            bad.append("serving: one K1 launch, (S, n) points")
+        if not ((out["best_viol"] < 1e-2).all()
+                and (out["best_f"] >= out["sdr_bounds"] - 1e-3).all()):
+            bad.append("serving: feasible and above the SDR bounds")
+    return rep, bad
+
+
+def _trace_gap(a, b):
+    """Largest |a - b| / (1 + |b|) over a history."""
+    a, b = a.double().cpu(), b.double().cpu()
+    return float(((a - b).abs() / (1.0 + b.abs())).max())
+
+
+def _trace_runs():
+    """The traces of phase tooling, each a function of the device: the
+    bench form (n = 100, m = 50, seed 0) from one numpy start, boolean
+    least squares for CD, sdr_path's n = 100 SDR form, float32."""
+    import torch
+    from qcqp_tpu_torch import diagnostics as dg
+    from qcqp_tpu_torch.convert import form_from_numpy
+
+    def on(dev, arrays):
+        return form_from_numpy(*arrays, device=dev, dtype=torch.float32)
+    bench = bench_form_arrays(0)
+    x0 = np.random.default_rng(0).standard_normal(N)
+    bls = boolean_ls_arrays()
+    x0_bls = np.random.default_rng(0).standard_normal(bls[1].shape[1])
+    return {"cd": lambda d: dg.cd_trace(on(d, bench), x0,
+                                        sweeps=TRACE_CD_SWEEPS),
+            "cd_boolean_ls": lambda d: dg.cd_trace(on(d, bls), x0_bls,
+                                                   sweeps=10),
+            "admm": lambda d: dg.admm_trace(on(d, bench), x0,
+                                            iters=TRACE_ADMM_ITERS),
+            "ccp": lambda d: dg.ccp_trace(on(d, bench), x0,
+                                          outers=TRACE_CCP_OUTERS),
+            "sdp": lambda d: dg.sdp_trace(on(d, bls_sdr_arrays()),
+                                          iters=TRACE_SDP_ITERS)}
+
+
+def start_cpu_traces(workdir):
+    """Start the CPU replays that phase tooling holds the card's ADMM and
+    SDP traces against: they need no card, so a CPU process
+    (`--cpu-traces`) makes them while the phases before tooling run."""
+    path = os.path.join(workdir, "cpu_traces.npz")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--cpu-traces", path])
+    proc.path = path
+    return proc
+
+
+def cpu_traces(path):
+    """(run as `--cpu-traces PATH`) the TRACE_RTOL traces on the CPU in
+    float32, their histories and ms, saved to PATH."""
+    import torch
+    torch.set_num_threads(2)
+    sys.path.insert(0, REPO)
+    runs, out = _trace_runs(), {}
+    for name in TRACE_RTOL:
+        t0 = time.perf_counter()
+        for k, v in runs[name]("cpu").items():
+            out[f"{name}/{k}"] = v.numpy()
+        out[f"{name}/ms"] = (time.perf_counter() - t0) * 1e3
+    np.savez(path, **out)
+
+
+def _traces(cpu_proc):
+    """The four traces on the card in float32: ADMM's and the SDP's held
+    against the same traces on the CPU in float32 from the same start
+    (made by the `--cpu-traces` process), CD's and CCP's to the
+    properties of tests/test_aux.py (violation non-increasing to within
+    one `better` bucket, CD's final violation under viol_tol on boolean
+    least squares, the tau schedule exact)."""
+    import torch
+    runs = _trace_runs()
+    taus = [0.005]                              # ccp_trace's defaults
+    for _ in range(TRACE_CCP_OUTERS - 1):
+        taus.append(min(taus[-1] * 1.4, 1e8))
+    out, bad = {}, []
+    for name, run in runs.items():
+        ms, card = host_ms(lambda: run("cuda"))
+        hist = {k: v for k, v in card.items() if k not in ("x", "z", "X")}
+        rep = {"ms_card": ms,
+               "first_last": {k: [v[0].item(), v[-1].item()]
+                              for k, v in hist.items()}}
+        if not (all(v.is_cuda for v in card.values())
+                and all(bool(torch.isfinite(v).all()) for v in hist.values())):
+            bad.append(f"{name}: on the card, finite")
+        if name in TRACE_RTOL:
+            if cpu_proc.wait(timeout=300) != 0:
+                raise AssertionError("the --cpu-traces process failed")
+            with np.load(cpu_proc.path) as z:
+                cpu = {k: torch.from_numpy(z[f"{name}/{k}"]) for k in hist}
+                rep["ms_cpu"] = float(z[f"{name}/ms"])
+            rep.update(rtol=TRACE_RTOL[name],
+                       gap={k: _trace_gap(v, cpu[k]) for k, v in hist.items()})
+            if max(rep["gap"].values()) > TRACE_RTOL[name]:
+                bad.append(f"{name}: card against CPU")
+        else:
+            steps = np.diff(hist["violation"].cpu().numpy())
+            rep["max_violation_rise"] = float(steps.max(initial=0.0))
+            if (steps > 1e-4 + 1e-6).any():
+                bad.append(f"{name}: violation rose")
+        if name == "cd_boolean_ls" and not hist["violation"][-1] < 1e-2:
+            bad.append("cd_boolean_ls: final violation")
+        if name == "ccp" and not torch.equal(
+                card["tau"].cpu(), torch.tensor(taus, dtype=torch.float32)):
+            bad.append("ccp: tau schedule")
+        out[name] = rep
+    return out, bad
+
+
+def _profiled(workdir):
+    """torch_profile around one K1 solve (R = 10,240) and one K3 ADMM
+    solve (R = 1,024, 50 iterations): the trace files parse and list the
+    kernels' launches; and `timed` around one K1 solve against its CUDA
+    events."""
+    import torch
+    import qcqp_tpu_torch as qt
+    from qcqp_tpu_torch import diagnostics as dg
+    from qcqp_tpu_torch.convert import form_from_numpy
+    from qcqp_tpu_torch.parallel.restarts import solve_restarts
+    form = form_from_numpy(*bench_form_arrays(0), device="cuda",
+                           dtype=torch.float32)
+    counters = _kernel_counters()
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(1)
+    out, bad = {}, []
+    for name, kernel, solve in (
+            ("k1", "cd_sweep_kernel",
+             lambda: solve_restarts(form, R_MAIN, gen(), num_iters=SWEEPS)),
+            ("k3", "admm_phase_kernel",
+             lambda: solve_restarts(form, PROFILE_R_K3, gen(),
+                                    improve=qt.ADMM, num_iters=ADMM_ITERS))):
+        counters[name].launches = 0
+        logdir = os.path.join(workdir, f"profile_{name}")
+        t0 = time.perf_counter()
+        with dg.torch_profile(logdir) as prof:
+            solve()
+        seconds = time.perf_counter() - t0
+        launches = counters[name].launches
+        with open(prof.trace_path) as f:
+            trace = json.load(f)
+        events = [e for e in trace.get("traceEvents", [])
+                  if e.get("cat") == "kernel" and kernel in e.get("name", "")]
+        listed = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and kernel in e.name]
+        out[name] = {"seconds_profiled": seconds,
+                     "trace_bytes": os.path.getsize(prof.trace_path),
+                     "trace_kernel_events": len(events),
+                     "key_averages_events": len(listed),
+                     "launches": launches,
+                     "kernel_names": sorted({e["name"][:80]
+                                             for e in events}),
+                     "device_ms": sum(e.get("dur", 0) for e in events) / 1e3}
+        if not events or len(events) != launches:
+            bad.append(f"profile {name}: {len(events)} events, "
+                       f"{launches} launches")
+    res = {}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with dg.timed("k1_solve", res):
+        start.record()
+        solve_restarts(form, R_MAIN, gen(), num_iters=SWEEPS)
+        end.record()
+    out["timed"] = {"timed_ms": res["k1_solve"] * 1e3,
+                    "event_ms": start.elapsed_time(end)}
+    if not out["timed"]["timed_ms"] >= out["timed"]["event_ms"]:
+        bad.append("timed read less than the CUDA events")
+    return out, bad
+
+
+def phase_tooling(workdir, cpu_proc):
+    """The tooling on the card (qcqp_tpu_torch/examples, diagnostics.py):
+    the five examples through main() on the default device, held to the
+    goldens, their K1/K3/K4 launches counted; the four traces on the card
+    against the CPU; torch_profile around a K1 and a K3 solve; timed
+    around a K1 solve."""
+    examples, bad = {}, []
+    for name in EXAMPLE_KERNELS:
+        out = (_serving_example(workdir) if name == "scenario_serving"
+               else _run_example(name))
+        rep, fails = _check_example(name, out)
+        examples[name] = rep
+        bad += [f"{name}: {f}" for f in fails]
+    traces, fails = _traces(cpu_proc)
+    bad += fails
+    profiled, fails = _profiled(workdir)
+    bad += fails
+    emit({"phase": "tooling", "examples": examples, "traces": traces,
+          "profile": profiled})
+    if bad:
+        raise AssertionError(f"tooling: {bad}")
+    return {"sdr_bound": examples["boolean_least_squares"]["sdr_bound"],
+            "launches": {name: rep["launches"]
+                         for name, rep in examples.items()},
+            "ms": {name: rep["ms"] for name, rep in examples.items()},
+            "serving": examples["scenario_serving"],
+            "k3_profile": profiled["k3"]}
 
 
 # the JAX package's float64 spectral bound of the boolean-LS problem
@@ -2043,25 +2383,13 @@ def phase_spectral(sdr_bound):
     if h.device.type != "cuda" or h.qcqp_form.dtype != torch.float32:
         raise AssertionError("the handler did not default to CUDA float32")
     # each splitting loop the suggest runs (first attempt, retry, float64)
-    solves, solve_sdp = [], sdp.solve_sdp
-
-    def spy(*a, **kw):
-        sol = solve_sdp(*a, **kw)
-        solves.append({"dtype": str(sol.X.dtype).replace("torch.", ""),
-                       "iterations": int(sol.iterations),
-                       "rp": float(sol.primal_res),
-                       "rd": float(sol.dual_res)})
-        return sol
-    # solve_sdp counts its masked tail on its module name: the spy
-    # carries the count and hands it back
-    spy.masked_tail = solve_sdp.masked_tail
+    solves = []
     sdp._solve_single.route = None
-    sdp.solve_sdp = spy
+    undo = _sdp_spy(solves)
     try:
         ms, (f, v) = host_ms(lambda: h.suggest(qt.SPECTRAL))
     finally:
-        sdp.solve_sdp = solve_sdp
-        solve_sdp.masked_tail = spy.masked_tail
+        undo()
     bound = h.spectral_bound
     out = {"route": sdp._solve_single.route, "solves": solves, "ms": ms,
            "bound": bound, "sdr_bound": sdr_bound,
@@ -2090,7 +2418,7 @@ def phase_spectral(sdr_bound):
 
 
 R_NLP = (128, 10240)                  # bench.py:242 (BENCH_CCP_R); 10^4
-NLP_REPEATS = {128: 3, 10240: 1}      # timed solves per R
+NLP_REPEATS = {128: 1, 10240: 1}      # timed solves per R
 # the schedule of the card-against-CPU lane check: the default schedule's
 # trajectories on the bench form amplify a few-ulp change of the start
 # into an order-1 change of (f, v) on every lane, so the lanes are held
@@ -2245,25 +2573,7 @@ def phase_nlp_path(arrays):
 S_SERVE, R_SERVE = 132, 64       # one scenario an SM; scenario_serving.py:55
 SERVE_REPEATS = 3
 K1_SAMPLE = (0, 1)                 # scenarios whose lanes size K1's bound
-S_EXAMPLE, N_EXAMPLE, M_EXAMPLE = 8, 12, 12   # scenario_serving.py:27
 S_ROUTES, CCP_ROUTE_KW = 4, dict(max_iter=6)  # phase (c); 1/10 of the trips
-
-
-def serving_example_arrays():
-    """examples/scenario_serving.py:27-40 through the port's modeling layer
-    in float64 on the host: S boolean least-squares instances from
-    default_rng(0), as stacked numpy arrays."""
-    import qcqp_tpu_torch as qt
-    rng = np.random.default_rng(0)
-    forms = []
-    for _ in range(S_EXAMPLE):
-        A = rng.standard_normal((M_EXAMPLE, N_EXAMPLE))
-        b = rng.standard_normal(M_EXAMPLE)
-        x = qt.Variable(N_EXAMPLE)
-        prob = qt.Problem(qt.Minimize(qt.sum_squares(A @ x - b)),
-                          [qt.square(x) == 1])
-        forms.append(qt.canonicalize(prob, device="cpu")[0])
-    return [np.stack([f[i].numpy() for f in forms]) for i in range(4)]
 
 
 def serving_bank_arrays():
@@ -2328,48 +2638,6 @@ def k1_sample_counts(path):
     print(json.dumps(out), flush=True)
 
 
-def _serving_example():
-    """(a) examples/scenario_serving.py at its own size on the card: bank
-    write (float64), forms_from_bank (float32 on the card),
-    solve_sdr_batch on its default float32 route, solve_scenarios (64
-    restarts, CD through K1)."""
-    import tempfile
-    import torch
-    from qcqp_tpu_torch import native
-    from qcqp_tpu_torch.kernels.cd_sweep_kernel import two_phase_sweeps
-    from qcqp_tpu_torch.parallel.scenarios import (forms_from_bank,
-                                                   solve_scenarios)
-    from qcqp_tpu_torch.solvers.sdp import solve_sdr_batch
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "instances.qcqp")
-        native.bank_write(path, *serving_example_arrays())
-        loaded = forms_from_bank(path)
-    if loaded.P.device.type != "cuda" or loaded.dtype != torch.float32:
-        raise AssertionError("forms_from_bank did not land on the card in "
-                             "float32")
-    fallbacks = solve_sdr_batch.fallbacks
-    ms_sdr, (_, bounds, rp, rd) = host_ms(
-        lambda: solve_sdr_batch(loaded, max_iters=4000, tol=1e-7))
-    two_phase_sweeps.launches = 0
-    ms_cd, (xs, fs, vs) = host_ms(lambda: solve_scenarios(
-        loaded, 64, torch.Generator(device="cuda").manual_seed(0)))
-    launches = two_phase_sweeps.launches
-    fs_, vs_, b_ = (t.double().cpu().numpy() for t in (fs, vs, bounds))
-    if launches != 1 or xs.shape != (S_EXAMPLE, N_EXAMPLE):
-        raise AssertionError(f"serving example: {launches} K1 launches, "
-                             f"xs {tuple(xs.shape)}")
-    if not ((vs_ < 1e-2).all() and (fs_ >= b_ - 1e-3).all()):
-        raise AssertionError(f"serving example: objectives {fs_}, "
-                             f"violations {vs_}, SDR bounds {b_}")
-    return {"S": S_EXAMPLE, "n": N_EXAMPLE, "m": M_EXAMPLE, "R": 64,
-            "sdr_ms": ms_sdr, "sdr_float64_resolves":
-                solve_sdr_batch.fallbacks - fallbacks,
-            "sdr_bounds": b_.tolist(),
-            "sdr_max_residual": float(torch.maximum(rp, rd).max()),
-            "cd_ms": ms_cd, "k1_launches": launches,
-            "best_f": fs_.tolist(), "best_viol": vs_.tolist()}
-
-
 def _per_scenario_routes(stacked):
     """(c) improve=ADMM and improve=DCCP on the first S_ROUTES scenarios at
     R_SERVE: each scenario equals solve_restarts on its form from the
@@ -2409,7 +2677,7 @@ def _per_scenario_routes(stacked):
     return out
 
 
-def phase_scenarios(sample, workdir):
+def phase_scenarios(sample, workdir, example):
     """Scenario serving on the card (qcqp_tpu_torch/parallel/scenarios.py):
     (a) the serving example at its own size; (b) S_SERVE bench forms as a
     float64 bank, loaded back in two halves, 3 timed solve_scenarios (one
@@ -2425,7 +2693,6 @@ def phase_scenarios(sample, workdir):
     from qcqp_tpu_torch.parallel.restarts import best_point
     from qcqp_tpu_torch.parallel.scenarios import (forms_from_bank,
                                                    scenario, solve_scenarios)
-    example = _serving_example()
 
     arrays = serving_bank_arrays()
     path = os.path.join(workdir, "serving.qcqp")
@@ -2577,6 +2844,17 @@ def _collective_ms(mesh, device):
                             for _ in range(5)]))
 
 
+def _inventory(mesh, before=None, solves=1):
+    """A mesh's collectives (calls and payload bytes by kind) since
+    `before` (an earlier _inventory), per solve."""
+    out = {}
+    for key in ("calls", "bytes"):
+        now, then = getattr(mesh, key), (before or {}).get(key, {})
+        out[key] = {k: (now[k] - then.get(k, 0)) / solves for k in now
+                    if now[k] != then.get(k, 0)}
+    return out
+
+
 def dist_worker(spec_path):
     """(run as `--dist-worker SPEC`) one rank of phase distributed: set-up
     (a), an NCCL world of one, or (b), a gloo world of two, both on
@@ -2623,6 +2901,7 @@ def _dist_a(spec, device):
         gen = torch.Generator(device=device).manual_seed(seed)
         return solve_restarts(form, R_MAIN, gen, num_iters=SWEEPS, **kw)
     solve(0, mesh=mesh)                                  # warm-up
+    inventory = _inventory(mesh)                         # of one solve
     times, single, launches = [], [], 0
     for seed in range(1, 1 + DIST_REPEATS):
         two_phase_sweeps.launches = 0
@@ -2639,7 +2918,7 @@ def _dist_a(spec, device):
             "R": R_MAIN, "sweeps": SWEEPS,
             "ms_per_solve": times, "ms_per_solve_no_mesh": single,
             "collective_ms": _collective_ms(mesh, device),
-            "k1_launches": launches}
+            "k1_launches": launches, "inventory": inventory}
 
 
 def _dist_b(spec, device):
@@ -2674,6 +2953,7 @@ def _dist_b(spec, device):
             solve_restarts(form, R, gen(0), improve=improve, mesh=mesh, **kw)
         seen, undo = _capture_chain()
         kernel.launches = 0
+        before = _inventory(mesh)
         try:
             times, results = [], []
             for seed in range(1, 1 + repeats):
@@ -2685,7 +2965,9 @@ def _dist_b(spec, device):
             undo()
         out[name] = {"R": R, **kw, "ms_per_solve": times,
                      "launches": kernel.launches,
-                     "block": list(seen[0].shape)}
+                     "block": list(seen[0].shape),
+                     "inventory_per_solve": _inventory(mesh, before,
+                                                       repeats)}
         dump[name] = {"block": seen[0].cpu(),
                       "best": [t.cpu() for t in results[0]]}
     out["collective_ms"] = _collective_ms(mesh, device)
@@ -2720,7 +3002,8 @@ def _dist_b(spec, device):
     out["restarts_2d"] = {"mesh": dict(grid2.shape), "R": R_DIST_2D,
                           "iters": ADMM_ITERS, "ms": ms,
                           "all_reduces": grid2.calls["all_reduce"],
-                          "all_gathers": grid2.calls["all_gather"]}
+                          "all_gathers": grid2.calls["all_gather"],
+                          "inventory": _inventory(grid2)}
     dump["2d"] = {"block": blocks[0].cpu(), "best": [t.cpu() for t in res]}
     torch.save(dump, os.path.join(spec["workdir"],
                                   f"dist_b{spec['rank']}.pt"))
@@ -2947,10 +3230,35 @@ def phase_distributed(arrays, main_best, scen, workdir):
               "median_viol_1d": float(np.median(v1d)),
               "ms_one_process_unfused": refs["admm_1d_ms"]}
     checks["2d_parity"] = parity
+
+    # the collective inventory against the analytic count: the best point
+    # is one all_gather of n + 3 float32 numbers a rank, and the 2-D ADMM
+    # one all_reduce of the rank's (R / nr, n) float32 consensus sums an
+    # iteration over "c" (nr = 1), then the best point's all_gather
+    best = {"calls": {"all_gather": 1}, "bytes": {"all_gather": (N + 3) * 4}}
+    inventory = {"a": a["inventory"]}
+    for i, w in enumerate(b):
+        for name, _, _, _ in DIST_CHAINS:
+            inventory[f"b{i}_{name}"] = w[name]["inventory_per_solve"]
+    checks["inventory_best_point"] = {
+        "expected": best,
+        "ranks_differing": [k for k, v in inventory.items() if v != best]}
+    iters = [w["restarts_2d"]["inventory"]["calls"].get("all_reduce", 0)
+             for w in b]
+    want2d = [{"calls": {"all_reduce": t, "all_gather": 1},
+               "bytes": {"all_reduce": t * R_DIST_2D * N * 4,
+                         "all_gather": (N + 3) * 4}} for t in iters]
+    checks["inventory_2d"] = {
+        "all_reduce_bytes_each": R_DIST_2D * N * 4,
+        "equal_to_analytic": [w["restarts_2d"]["inventory"] == want
+                              for w, want in zip(b, want2d)]}
     emit({"phase": "distributed", "a": a, "b": b, "checks": checks,
           "timeline_s": timeline})
     failed = [k for k in ("a_equals_main_path", "cd_best_equals_a",
                           "2d_best_same_on_both_ranks") if not checks[k]]
+    if (checks["inventory_best_point"]["ranks_differing"]
+            or not all(checks["inventory_2d"]["equal_to_analytic"])):
+        failed.append("inventory")
     if (failed or same != [S_SERVE, S_SERVE]
             or parity["feasible_share_2d"] < parity["feasible_share_1d"]
             or not parity["f_within_5pct"]
@@ -3040,9 +3348,37 @@ def phase_profile(arrays):
                                               num_iters=SWEEPS, mega=mega),
                        kernel="phase1_kernel" if mega is False else None,
                        route=route, R=R_MAIN, sweeps=SWEEPS)
-    # the default route above n = 128 (phase k2_route), and its phase 1
-    # alone on the same starts: the rest of the solve is the phase-2 gate,
-    # the unfused phase 2 and the best point
+    for R in R_ADMM:
+        _profile_solve(lambda: solve_restarts(form, R, gen(), improve=qt.ADMM,
+                                              num_iters=ADMM_ITERS),
+                       kernel="admm_phase_kernel", route="admm", R=R,
+                       iters=ADMM_ITERS)
+    for R in R_CCP:
+        _profile_solve(lambda: solve_restarts(form, R, gen(), improve=qt.DCCP),
+                       kernel="ccp_kernel", route="dccp", R=R)
+    # the SDR routes on the n = 100 boolean-LS SDR, 200 iterations each
+    from qcqp_tpu_torch.solvers import sdp
+    data = sdp._sdr_data(form_from_numpy(*bls_sdr_arrays(), device="cuda",
+                                         dtype=torch.float32))
+    for psd, kw in (("ns", dict(alpha=1.0)),
+                    ("vec", dict(alpha=1.6, warm_sweeps=2))):
+        _profile_solve(lambda: sdp.solve_sdp(
+            data, max_iters=200, tol=0.0, psd_method=psd, accel_mem=0,
+            detect_certificates=False, **kw), route=f"sdr_{psd}", n=SDR_N,
+            iters=200)
+    # the NLP improve alone (phase nlp_path), device only: about 10^5
+    # launches a solve
+    from qcqp_tpu_torch.solvers.nlp import improve_nlp
+    for R in R_NLP:
+        xs = suggest_batch(form, R, gen())
+        _profile_solve(lambda: improve_nlp(form, xs), host=False, top=10,
+                       route="nlp", R=R)
+    # the default route above n = 128 (phase k2_route), last: its profile
+    # records about 720,000 device events, and every profile taken after
+    # one that large loses kernel records (K3's phase-1 launch, K4's
+    # launch at R = 128); then its phase 1 alone on the same starts: the
+    # rest of the solve is the phase-2 gate, the unfused phase 2 and the
+    # best point
     from qcqp_tpu_torch.solvers import coord_descent_fused as fused
     form2 = form_from_numpy(*bench_form_arrays(0, N_K2, M_K2), device="cuda",
                             dtype=torch.float32)
@@ -3062,30 +3398,6 @@ def phase_profile(arrays):
           "phase2_and_gate_ms": ms_all - ms_p1,
           "feasible_after_phase1": int((max_violation_batch(form2, x1)
                                         < 1e-2).sum())})
-    for R in R_ADMM:
-        _profile_solve(lambda: solve_restarts(form, R, gen(), improve=qt.ADMM,
-                                              num_iters=ADMM_ITERS),
-                       route="admm", R=R, iters=ADMM_ITERS)
-    for R in R_CCP:
-        _profile_solve(lambda: solve_restarts(form, R, gen(), improve=qt.DCCP),
-                       route="dccp", R=R)
-    # the SDR routes on the n = 100 boolean-LS SDR, 200 iterations each
-    from qcqp_tpu_torch.solvers import sdp
-    data = sdp._sdr_data(form_from_numpy(*bls_sdr_arrays(), device="cuda",
-                                         dtype=torch.float32))
-    for psd, kw in (("ns", dict(alpha=1.0)),
-                    ("vec", dict(alpha=1.6, warm_sweeps=2))):
-        _profile_solve(lambda: sdp.solve_sdp(
-            data, max_iters=200, tol=0.0, psd_method=psd, accel_mem=0,
-            detect_certificates=False, **kw), route=f"sdr_{psd}", n=SDR_N,
-            iters=200)
-    # the NLP improve alone (phase nlp_path), device only: about 10^5
-    # launches a solve
-    from qcqp_tpu_torch.solvers.nlp import improve_nlp
-    for R in R_NLP:
-        xs = suggest_batch(form, R, gen())
-        _profile_solve(lambda: improve_nlp(form, xs), host=False, top=10,
-                       route="nlp", R=R)
     eq_idx = form.eq_idx()
     scaling = []
     for R in (256, 1024, 4096, 10240, 20480, 40960):
@@ -3159,11 +3471,16 @@ def main():
     args.add_argument("--k1-sample", metavar="PATH",
                       help="(internal) count K1's plain version on the "
                            "sampled starts in PATH, on the CPU")
+    args.add_argument("--cpu-traces", metavar="PATH",
+                      help="(internal) phase tooling's CPU trace replays, "
+                           "saved to PATH")
     args.add_argument("--dist-worker", metavar="SPEC",
                       help="(internal) one rank of phase distributed")
     args = args.parse_args()
     if args.k1_sample:
         return k1_sample_counts(args.k1_sample)
+    if args.cpu_traces:
+        return cpu_traces(args.cpu_traces)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device")
     if args.dist_worker:
@@ -3171,16 +3488,17 @@ def main():
     sys.path.insert(0, REPO)
     import qcqp_tpu_torch  # noqa: F401  (fails outside a checkout)
     with tempfile.TemporaryDirectory() as workdir:
-        sample = start_k1_sample(workdir)
+        procs = [start_k1_sample(workdir), start_cpu_traces(workdir)]
         try:
-            run_phases(args, sample, workdir)
+            run_phases(args, *procs, workdir)
         finally:
-            if sample.poll() is None:
-                sample.kill()
-            sample.wait()
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait()
 
 
-def run_phases(args, sample, workdir):
+def run_phases(args, sample, cpu_proc, workdir):
     import threading
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3218,11 +3536,12 @@ def run_phases(args, sample, workdir):
     timed("ccp_golden", phase_ccp_golden)
     k5 = timed("k5", phase_k5)
     sdr = timed("sdr_path", phase_sdr_path)
-    sdr_bound = timed("sdr_golden", phase_sdr_golden, sdr["bank16"],
-                      sdr["acc16"])
-    spectral = timed("spectral", phase_spectral, sdr_bound)
+    timed("sdr_golden", phase_sdr_golden, sdr["bank16"], sdr["acc16"])
+    tooling = timed("tooling", phase_tooling, workdir, cpu_proc)
+    spectral = timed("spectral", phase_spectral, tooling["sdr_bound"])
     timed("nlp_path", phase_nlp_path, arrays)
-    scen = timed("scenarios", phase_scenarios, sample, workdir)
+    scen = timed("scenarios", phase_scenarios, sample, workdir,
+                 tooling["serving"])
     dist = timed("distributed", phase_distributed, arrays, main_best, scen,
                  workdir)
     if args.profile:
@@ -3246,6 +3565,8 @@ def run_phases(args, sample, workdir):
          "shape": f"n={N}, m={M}, R={R_MAIN}, {SWEEPS} sweeps",
          "ms_main_path": ms_main,
          "launches_spectral_cd": spectral["k1_launches"],
+         "launches_examples": {name: n["k1"] for name, n
+                               in tooling["launches"].items()},
          "launches_scenarios": scen["launches"],
          "ms_scenarios": scen["ms"], "ms_scenarios_loop": scen["ms_loop"],
          "shape_scenarios": scen["shape"],
@@ -3273,9 +3594,10 @@ def run_phases(args, sample, workdir):
              f"n={N}, m={M}, mega=False, one solve": launches["k2"],
              f"n={N_K2}, m={M_K2}, default, per solve":
                  k2_route["launches"]},
-         "at_k2_route": {k: k2_route[k]
-                         for k in ("shape", "ms", "plain_ms", "bound_ms",
-                                   "bound_by", "ms_per_solve")}},
+         "at_k2_route": {**{k: k2_route[k]
+                            for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                      "bound_by", "ms_per_solve")},
+                         "sweeps_per_solve": K2_ROUTE_SWEEPS}},
         {"name": "K3 admm_phase", "route": "cuda",
          "source": "qcqp_tpu_torch/csrc/admm_impl.cuh",
          "replaces": "qcqp_tpu/kernels/admm_pallas.py:407",
@@ -3291,6 +3613,12 @@ def run_phases(args, sample, workdir):
          "ms_by_R": admm["ms_by_R"], "plain_ms_by_R": admm["plain_ms_by_R"],
          "bound_ms_by_R": admm["bound_ms_by_R"],
          "ms_admm_path": admm["ms_per_solve"],
+         "launches_examples": {name: n["k3"] for name, n
+                               in tooling["launches"].items()},
+         "profiler_events_of_one_admm_solve": {
+             k: tooling["k3_profile"][k]
+             for k in ("trace_kernel_events", "key_averages_events",
+                       "launches")},
          "launches_distributed": {
              f"b: gloo world 2 on one card, R = {R_DIST_ADMM}, per rank":
                  dist["k3_b"]}},
@@ -3312,6 +3640,8 @@ def run_phases(args, sample, workdir):
          "ms_per_inner_trip_by_R": {
              R: v["ms_per_inner_trip"] for R, v in ccp["alone"].items()},
          "ms_ccp_path": ccp["ms_per_solve"],
+         "launches_examples": {name: n["k4"] for name, n
+                               in tooling["launches"].items()},
          "launches_distributed": {
              f"b: gloo world 2 on one card, R = {R_DIST_CCP}, per rank":
                  dist["k4_b"]}},

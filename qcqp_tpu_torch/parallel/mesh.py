@@ -9,7 +9,10 @@ named axes: this rank's coordinate on each axis and one process group
 along each axis, over which the collectives are explicit
 (`all_reduce_sum`, `all_gather`, `broadcast`).  A mesh made without a
 process group is this process alone (every axis of size 1), where each
-collective returns its input.
+collective returns its input.  Each collective that runs counts its
+call and its payload's bytes by kind (`Mesh.calls`, `Mesh.bytes`), the
+port's collective inventory (the JAX package reads it from the compiled
+HLO: benchmarks/scaling.py).
 
 Under gloo the payload of a collective on a CUDA tensor goes through host
 memory: gloo reduces and gathers host tensors (it has no all_gather of
@@ -67,7 +70,10 @@ class Mesh:
         where = np.argwhere(self.grid == self.rank)
         self.coords = (dict(zip(names, (int(c) for c in where[0])))
                        if len(where) else None)
+        # per collective kind: calls, and the bytes of the payload this
+        # rank passes in (numel x element size, before any staging)
         self.calls = collections.Counter()
+        self.bytes = collections.Counter()
         self._groups, self._lines = {}, {}
         if not dist.is_initialized():
             return
@@ -101,12 +107,16 @@ class Mesh:
         self.index(self.axis_names[0])          # raises outside the mesh
         return self._groups.get(axis), self._lines.get(axis)
 
+    def _count(self, kind: str, t: torch.Tensor) -> None:
+        self.calls[kind] += 1
+        self.bytes[kind] += t.numel() * t.element_size()
+
     def all_reduce_sum(self, t: torch.Tensor, axis: str) -> torch.Tensor:
         """The sum of t over the ranks along `axis` (JAX: lax.psum)."""
         group, _ = self._group(axis)
         if group is None:
             return t
-        self.calls["all_reduce"] += 1
+        self._count("all_reduce", t)
         buf, back = _staged(t.contiguous().clone(), group)
         dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
         return back(buf)
@@ -117,7 +127,7 @@ class Mesh:
         group, line = self._group(axis)
         if group is None:
             return t[None]
-        self.calls["all_gather"] += 1
+        self._count("all_gather", t)
         buf, back = _staged(t.contiguous(), group)
         parts = [torch.empty_like(buf) for _ in line]
         dist.all_gather(parts, buf, group=group)
@@ -136,7 +146,7 @@ class Mesh:
         group, line = self._group(axis)
         if group is None:
             return t
-        self.calls["broadcast"] += 1
+        self._count("broadcast", t)
         buf, back = _staged(t.contiguous().clone(), group)
         dist.broadcast(buf, src=line[0], group=group)
         return back(buf)

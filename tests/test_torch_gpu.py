@@ -854,3 +854,122 @@ def test_two_nccl_ranks_on_one_card_raise(cuda, tmp_path):
     for rc, _, err in results:
         assert rc != 0
         assert "one card per process" in err
+
+
+# -- the tooling: the examples, the traces and the scaling script -----------
+
+# card against CPU from the same start: float64 is determined (the card
+# meets the CPU to 1e-12 on the bench form; the ADMM trace at proj_tol =
+# 1e-12, since each projection's bisection stops within proj_tol and on
+# boolean least squares a round-off difference moves where it stops: at
+# the default 1e-6 the card parted from the CPU by 5.2e-7 in z); in
+# float32 the card's eighs (cuSOLVER) are less accurate than LAPACK's,
+# and on boolean least squares the histories stay within 1e-3
+# (chip_smoke.py's TRACE_RTOL has the bench form's gaps)
+TRACE_RTOL = {torch.float64: 1e-9, torch.float32: 1e-3}
+PROJ_TOL = {torch.float64: 1e-12, torch.float32: 1e-6}
+# the beamforming DCCP on the card, float32 through K4: see chip_smoke.py's
+# BEAMFORMING_DCCP_VIOL (the float64 route's golden is 1e-4)
+BEAMFORMING_DCCP_VIOL = 1e-3
+EXAMPLE_SDR_GOLDENS = {"boolean_least_squares": 28.750, "maxcut": 57.207,
+                       "circle_packing": 5.000,
+                       "secondary_user_beamforming": 1.970}
+
+
+@pytest.mark.parametrize("name", ["boolean_least_squares", "maxcut",
+                                  "circle_packing",
+                                  "secondary_user_beamforming",
+                                  "scenario_serving"])
+def test_example_on_the_card(cuda, name, tmp_path):
+    """Each example's main() on its default device, the card in float32:
+    the SDR goldens within 2e-2 with no float64 re-solve, the boolean-LS
+    best of 256 within 2e-2 of 35.550, the beamforming DCCP at violation
+    < BEAMFORMING_DCCP_VIOL and f <= 2.5, every (f, v) finite (scenario
+    serving asserts its own feasibility and bounds)."""
+    import importlib
+    from qcqp_tpu_torch.solvers import sdp
+    mod = importlib.import_module(f"qcqp_tpu_torch.examples.{name}")
+    resolves = sdp.solve_sdr.resolves
+    out = (mod.main(workdir=str(tmp_path)) if name == "scenario_serving"
+           else mod.main())
+    assert out["device"].startswith("cuda")
+    assert out["dtype"] == "torch.float32"
+    pairs = [v for k, v in out.items()
+             if isinstance(v, tuple) and len(v) == 2 and k != "x_shape"]
+    assert all(np.isfinite(x) for p in pairs for x in p)
+    if name in EXAMPLE_SDR_GOLDENS:
+        assert abs(out["sdr_bound"] - EXAMPLE_SDR_GOLDENS[name]) <= 2e-2
+        assert sdp.solve_sdr.resolves == resolves
+    if name == "boolean_least_squares":
+        f, v = out["best_of_256"]
+        assert v < 1e-2 and abs(f - 35.550) <= 2e-2
+    if name == "secondary_user_beamforming":
+        f, v = out["dccp"]
+        assert v < BEAMFORMING_DCCP_VIOL and f <= 2.5
+
+
+def _bls_forms(dtype=torch.float32):
+    """The boolean-LS example's form on the card and on the CPU, and a
+    numpy start."""
+    from qcqp_tpu_torch.convert import form_from_numpy
+    rs = np.random.RandomState(1)
+    A, b = rs.randn(15, 10), rs.randn(15, 1).ravel()
+    P = np.zeros((11, 10, 10))
+    P[0] = A.T @ A
+    P[1 + np.arange(10), np.arange(10), np.arange(10)] = 1.0
+    q = np.zeros((11, 10))
+    q[0] = -2.0 * A.T @ b
+    r = -np.ones(11)
+    r[0] = b @ b
+    arrays = (P, q, r, np.ones(10, bool))
+    return ({dev: form_from_numpy(*arrays, device=dev, dtype=dtype)
+             for dev in ("cuda", "cpu")},
+            np.random.default_rng(0).standard_normal(10))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["admm", "sdp"])
+def test_trace_on_the_card_matches_the_cpu(cuda, kind, dtype):
+    """admm_trace and sdp_trace on the card against the same trace on the
+    CPU in the same dtype, from the same start: each history within
+    TRACE_RTOL of the CPU's, relative to 1 + |CPU value|."""
+    from qcqp_tpu_torch import diagnostics as dg
+    forms, x0 = _bls_forms(dtype)
+    run = ((lambda d: dg.admm_trace(forms[d], x0, iters=200,
+                                    proj_tol=PROJ_TOL[dtype]))
+           if kind == "admm" else (lambda d: dg.sdp_trace(forms[d],
+                                                          iters=300)))
+    card, cpu = run("cuda"), run("cpu")
+    for k, v in card.items():
+        assert v.is_cuda and torch.isfinite(v).all()
+        gap = ((v.cpu().double() - cpu[k].double()).abs()
+               / (1.0 + cpu[k].double().abs())).max()
+        assert float(gap) <= TRACE_RTOL[dtype], (k, float(gap))
+
+
+def test_cd_and_ccp_traces_on_the_card(cuda):
+    """cd_trace and ccp_trace on the card: the properties of
+    tests/test_aux.py (CD phase 1 parts from the CPU at round-off):
+    violations non-increasing to within one `better` bucket, CD's final
+    violation under 1e-2, the tau schedule exact."""
+    from qcqp_tpu_torch import diagnostics as dg
+    forms, x0 = _bls_forms()
+    cd = dg.cd_trace(forms["cuda"], x0, sweeps=20)
+    v = cd["violation"].cpu().numpy()
+    assert cd["x"].is_cuda and v[-1] < 1e-2 and v[-1] <= v[0]
+    tr = dg.ccp_trace(forms["cuda"], x0, outers=8, tau=0.01, mu=2.0)
+    assert torch.equal(tr["tau"].cpu(),
+                       0.01 * 2.0 ** torch.arange(8, dtype=torch.float32))
+    assert (np.diff(tr["violation"].cpu().numpy()) <= 1e-4 + 1e-6).all()
+
+
+def test_scaling_script_on_one_card(cuda, monkeypatch):
+    """benchmarks/scaling.py on one card: a world of one NCCL rank gives a
+    rate, and its restart solve's collectives are one all_gather of
+    n + 3 float32 numbers."""
+    from qcqp_tpu_torch.benchmarks import scaling
+    for name, value in (("N", 8), ("M", 4), ("R", 64), ("SWEEPS", 2)):
+        monkeypatch.setattr(scaling, name, value)
+    out = scaling.collective_report(1, device="cuda")
+    assert out["ranks"][0]["bytes"] == {"all_gather": (8 + 3) * 4}
+    assert scaling.run(1, device="cuda") > 0

@@ -181,7 +181,13 @@ def test_port_imports_no_jax():
     code = ("import sys; import qcqp_tpu_torch, qcqp_tpu_torch.solvers.sdp, "
             "qcqp_tpu_torch.kernels.eigh_kernel, qcqp_tpu_torch.convert, "
             "qcqp_tpu_torch.parallel.restarts, "
-            "qcqp_tpu_torch.parallel.scenarios, qcqp_tpu_torch.native; "
+            "qcqp_tpu_torch.parallel.scenarios, qcqp_tpu_torch.native, "
+            "qcqp_tpu_torch.diagnostics, qcqp_tpu_torch.benchmarks.scaling, "
+            "qcqp_tpu_torch.examples.boolean_least_squares, "
+            "qcqp_tpu_torch.examples.maxcut, "
+            "qcqp_tpu_torch.examples.circle_packing, "
+            "qcqp_tpu_torch.examples.secondary_user_beamforming, "
+            "qcqp_tpu_torch.examples.scenario_serving; "
             "assert 'jax' not in sys.modules; "
             "assert not any(m == 'qcqp_tpu' or m.startswith('qcqp_tpu.') "
             "for m in sys.modules)")
