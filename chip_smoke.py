@@ -30,11 +30,15 @@ launch no kernel, go first (`plain_runs`: the plain versions that phases
                invariance of the kernel's per-lane output; then
                two_phase_sweeps (and phase1_sweeps where n <= 9) on
                K1_SHAPES (m + 1 and m + E on both sides of 32 and 64,
-               n = 1 and 128 at the largest m the CD route sends to K1,
-               n = 8 at m = 300, R = 1 and 300) and on two forms that
-               force ties in phase 2's select, every lane bit for bit;
-               ptxas' registers, stack and spills of K1, and its shared
-               memory at the main path's shape;
+               n = 1 at m = 1,278, n = 128 at m = 78, n = 8 at m = 300,
+               R = 1 and 300) and on two forms that force ties in phase
+               2's select, every lane bit for bit; then above n = 128, on
+               K1_WIDE_SHAPES (n = 129 and 256, m + 1 and m + E on both
+               sides of 32, and (128, 79)) at R = 300 and R = 1, 1 sweep,
+               against plain-version runs that a process of their own
+               made on the card while the kernels were built
+               (`--k1-wide`); ptxas' registers, stack and spills of K1,
+               and its shared memory at the main path's shape;
   4. golden    boolean least squares through the modeling layer and
                QCQP(prob).solve(256 restarts, 50 sweeps), which defaults to
                CUDA float32: the
@@ -49,17 +53,25 @@ launch no kernel, go first (`plain_runs`: the plain versions that phases
                that solve's best point and equal the plain version bit for
                bit (and within the margins above); the restart-sweeps and
                probes the plain version counts there size K1's bound;
-  6. k2_route the default CD route above n = 128: bench.py's form at
-               BENCH_N=256, BENCH_M=20 (seed 0) through solve_restarts at
-               R = 10,240, with no mega= argument, so that `_mega_fits`
-               sends phase 1 to K2 once per coordinate: a one-sweep
-               warm-up and one timed solve of 4 sweeps,
-               restarts/s, best (f, v), K1 (none) and K2 (n a sweep)
-               launches; K2 alone on one of the route's launches, against
-               its plain version and timed;
-               the route at R = 256, 1 sweep, every restart bit for bit
-               against the same route with K2's plain version in K2's
-               place (swapped in this script only);
+  6. k2_route the CD route above n = 128: bench.py's form at BENCH_N=256,
+               BENCH_M=20 (seed 0) through solve_restarts at R = 10,240,
+               10 sweeps, with no mega= argument, so that the card's rule
+               (K1 wherever its shared memory holds a restart) sends it
+               to K1: a warm-up and 3 timed solves, restarts/s, best
+               (f, v), one K1 launch and no K2 launch a solve; K1 alone on
+               the first timed solve's starts, which must give that
+               solve's best point (phase 3 holds K1 on their first 300 at
+               1 sweep against its plain version, every lane bit for
+               bit); K1's bound from its plain version's counts on
+               128 of those starts at 10 sweeps (a CPU process started at
+               the beginning, `--k1-route-sample`), scaled; then the K2
+               route through mega=False: one timed solve of
+               K2_ROUTE_SWEEPS sweeps (K2 n times a sweep, no K1), K2
+               alone on one of its launches against its plain version and
+               timed, and the route at R = 256, 1 sweep, every restart
+               bit for bit against the same route with K2's plain
+               version in K2's place (swapped in this script only); both
+               routes' ms side by side;
   7. k3        K3 (csrc/admm_impl.cuh, one warp per restart) against its
                plain version on the card, phase by phase, every lane bit
                for bit: the bench form, R = 1,024 numpy starts, 50
@@ -266,7 +278,8 @@ or outside a checkout of the repository, it fails before printing anything.
 `python3 chip_smoke.py --profile` adds, before those last lines, a
 torch.profiler breakdown of one solve per route (CD through K1 and through
 K2 at R = 10,240, with K2's share of the device time; phase 6's n = 256
-route likewise, and its phase 1 alone beside the whole improve; ADMM
+form through K1, and through K2 with its phase 1 alone beside the whole
+improve; ADMM
 through K3 at R = 1,024 and 10,240; DCCP through K4 at R = 128 and
 10,240; the n = 100 SDR's Newton-Schulz and vec routes, 200 iterations
 each; the NLP improve at R = 128 and 10,240): kernel time by kernel
@@ -525,39 +538,94 @@ def phase_k2(bench_is_eq):
             **k2_bound(split["probes"], M, E, split["bytes"])}
 
 
-# The default CD route above n = 128 (`_mega_fits` false: phase 1 through
-# K2 once per coordinate): bench.py's form at BENCH_N=256, BENCH_M=20.
+# The CD route above n = 128: bench.py's form at BENCH_N=256, BENCH_M=20,
+# through K1 by the card's rule, and through K2 with mega=False.
 N_K2, M_K2 = 256, 20
 R_K2_CHECK, K2_CHECK_SWEEPS = 256, 1
-K2_ROUTE_REPEATS = 1            # timed solves of the route, after a warm-up
-K2_ROUTE_SWEEPS = 4             # the timed solve's sweeps
+K2_ROUTE_SWEEPS = 2             # the K2 route's timed solve's sweeps
 
 
-def phase_k2_route(arrays):
-    """solve_restarts on the n = 256, m = 20 form at R = 10,240, with no
-    mega= argument: one warm-up (one sweep) and one timed solve of
-    K2_ROUTE_SWEEPS sweeps, K1 0 launches and K2 at least n; K2 alone on
-    the inputs of one of the route's launches (coordinate n/2 of the
-    warm-up's sweep), against its plain version and timed; then the route
-    at R = 256, K2_CHECK_SWEEPS sweeps, every restart bit for bit against
-    the same route with K2's plain version in K2's place (swapped here
-    only)."""
+def phase_k2_route(arrays, sample):
+    """solve_restarts on the n = 256, m = 20 form at R = 10,240: with no
+    mega= argument a warm-up and 3 timed solves of SWEEPS sweeps, one K1
+    launch and no K2 launch each; K1 alone on the first timed solve's
+    starts, which must give that solve's best point; K1's bound from the
+    `--k1-route-sample` counts.  Then with mega=False one timed solve of
+    K2_ROUTE_SWEEPS sweeps (no K1, K2 n times a sweep), K2 alone on the
+    inputs of one of its launches (coordinate n/2 of the first sweep)
+    against its plain version and timed, and the route at R = 256,
+    K2_CHECK_SWEEPS sweeps, every restart bit for bit against the same
+    route with K2's plain version in K2's place (swapped here only).  K1
+    on these starts against its plain version is phase k1's last case."""
     import torch
     from qcqp_tpu_torch.convert import form_from_numpy
     from qcqp_tpu_torch.kernels import onevar_kernel as k2
-    from qcqp_tpu_torch.kernels.cd_sweep_kernel import two_phase_sweeps
-    from qcqp_tpu_torch.parallel.restarts import solve_restarts, suggest_batch
+    from qcqp_tpu_torch.kernels.cd_sweep_kernel import (holds,
+                                                        two_phase_sweeps)
+    from qcqp_tpu_torch.parallel.restarts import (best_point, solve_restarts,
+                                                  suggest_batch)
     from qcqp_tpu_torch.solvers import coord_descent_fused as fused
     form = form_from_numpy(*arrays, device="cuda", dtype=torch.float32)
-    if fused._mega_fits(form):
-        raise AssertionError("the n = 256 form would take K1's route")
     eq_idx = form.eq_idx()
     E = len(eq_idx)
+    if not holds(N_K2, M_K2, E):
+        raise AssertionError("the n = 256 form would not take K1's route")
 
-    def solve(seed, sweeps=SWEEPS):
+    def solve(seed, sweeps=SWEEPS, **kw):
         gen = torch.Generator(device="cuda").manual_seed(seed)
-        return solve_restarts(form, R_MAIN, gen, num_iters=sweeps)
+        return solve_restarts(form, R_MAIN, gen, num_iters=sweeps, **kw)
 
+    def launches():
+        return {"k1": two_phase_sweeps.launches,
+                "k2": k2.phase1_coordinate_update.launches}
+
+    def finite(results, name):
+        for (x, f, v) in results:
+            if not (torch.isfinite(x).all() and x.shape == (N_K2,)
+                    and bool(torch.isfinite(f)) and bool(torch.isfinite(v))):
+                raise AssertionError(f"the {name} returned a non-finite "
+                                     "point")
+
+    solve(0)                                            # warm-up
+    two_phase_sweeps.launches = k2.phase1_coordinate_update.launches = 0
+    times, results = [], []
+    for seed in (1, 2, 3):
+        ms, res = host_ms(lambda: solve(seed))
+        times.append(ms)
+        results.append(res)
+    k1_counts = launches()
+    finite(results, "K1 route")
+    if k1_counts != {"k1": 3, "k2": 0}:
+        raise AssertionError(f"n = 256 default route launch counts "
+                             f"{k1_counts}")
+    xs = route_starts(R_MAIN)
+    if not torch.equal(xs, suggest_batch(form, R_MAIN, torch.Generator(
+            device="cuda").manual_seed(1))):
+        raise AssertionError("route_starts is not solve_restarts' draw")
+
+    def k1_alone():
+        return two_phase_sweeps(form.P, form.q, form.r, eq_idx, xs,
+                                num_iters=SWEEPS)
+    ms_k1_a, x_k1 = host_ms(k1_alone)
+    ms_k1_b, _ = host_ms(k1_alone)
+    if not all(torch.equal(a, b) for a, b in zip(best_point(form, x_k1),
+                                                  results[0])):
+        raise AssertionError("K1 on the first solve's starts does not give "
+                             "that solve's best point")
+    report = sample.communicate(timeout=600)[0]
+    if sample.returncode != 0:
+        raise AssertionError(f"the K1 route sample process exited "
+                             f"{sample.returncode}")
+    counts = json.loads(report.splitlines()[-1])
+    scale = R_MAIN / counts["R"]
+    ops = scale * (counts["lane_sweeps"] * (
+        (M_K2 + 1) * (2 * N_K2 * N_K2 + 2 * N_K2) + N_K2 * 2 * (M_K2 + 1)
+        * N_K2) + counts["probes"] * (M_K2 + E) * C_ROW)
+    nbytes = 4 * ((M_K2 + 1) * N_K2 * N_K2 + (M_K2 + 1) * N_K2 + (M_K2 + 1)
+                  + 2 * R_MAIN * N_K2)
+    k1_bound = bound(ops, nbytes)
+
+    # the K2 route (mega=False), K2 captured at one of its launches
     kernel, captured = fused.phase1_coordinate_update, []
 
     def capture(*args, **kw):
@@ -567,38 +635,28 @@ def phase_k2_route(arrays):
             captured.append(None)
         return kernel(*args, **kw)
     fused.phase1_coordinate_update = capture
+    two_phase_sweeps.launches = k2.phase1_coordinate_update.launches = 0
     try:
-        solve(0, sweeps=1)          # warm-up: one sweep, as phase 11's
+        ms_k2route, res_k2 = host_ms(lambda: solve(1, K2_ROUTE_SWEEPS,
+                                                   mega=False))
     finally:
         fused.phase1_coordinate_update = kernel
+    k2_counts = launches()
+    finite([res_k2], "K2 route")
+    if k2_counts["k1"] != 0 or k2_counts["k2"] < N_K2:
+        raise AssertionError(f"mega=False route launch counts {k2_counts}")
     args, kw = captured[N_K2 // 2]
-    two_phase_sweeps.launches = 0
-    k2.phase1_coordinate_update.launches = 0
-    times, results = [], []
-    for seed in range(1, 1 + K2_ROUTE_REPEATS):
-        ms, res = host_ms(lambda: solve(seed, K2_ROUTE_SWEEPS))
-        times.append(ms)
-        results.append(res)
-    launches = {"k1": two_phase_sweeps.launches,
-                "k2": k2.phase1_coordinate_update.launches}
-    for (x, f, v) in results:
-        if not (torch.isfinite(x).all() and x.shape == (N_K2,)
-                and bool(torch.isfinite(f)) and bool(torch.isfinite(v))):
-            raise AssertionError("the K2 route returned a non-finite point")
-    if launches["k1"] != 0 or launches["k2"] < K2_ROUTE_REPEATS * N_K2:
-        raise AssertionError(f"K2 route launch counts {launches}")
-
     alone = k2_check(args, kw, timed=True)
 
     xs = suggest_batch(form, R_K2_CHECK,
                        torch.Generator(device="cuda").manual_seed(4))
     before = k2.phase1_coordinate_update.launches
-    x_k = fused.improve_coord_descent_fused(form, xs,
+    x_k = fused.improve_coord_descent_fused(form, xs, mega=False,
                                             num_iters=K2_CHECK_SWEEPS)
     check_launches = k2.phase1_coordinate_update.launches - before
     fused.phase1_coordinate_update = k2.phase1_coordinate_update_ref
     try:
-        x_p = fused.improve_coord_descent_fused(form, xs,
+        x_p = fused.improve_coord_descent_fused(form, xs, mega=False,
                                                 num_iters=K2_CHECK_SWEEPS)
     finally:
         fused.phase1_coordinate_update = kernel
@@ -611,23 +669,39 @@ def phase_k2_route(arrays):
             f"({check_launches} K2 launches)")
 
     ms_route = float(np.median(times))
-    f_best, v_best = float(results[0][1]), float(results[0][2])
     b = k2_bound(alone["probes"], M_K2, E, alone["bytes"])
     emit({"phase": "k2_route", "n": N_K2, "m": M_K2, "E": E, "R": R_MAIN,
-          "sweeps": K2_ROUTE_SWEEPS, "ms_per_solve": times,
-          "restarts_per_s": R_MAIN / ms_route * 1e3,
-          "best_f": f_best, "best_viol": v_best,
-          "launches": launches,
-          "k2_launches_per_solve": launches["k2"] / K2_ROUTE_REPEATS,
-          "k2_alone": {"coordinate": N_K2 // 2, **alone, **b},
-          "vs_plain": {"R": R_K2_CHECK, "sweeps": K2_CHECK_SWEEPS,
-                       "restarts_identical": int(same.sum()),
-                       "k2_launches": check_launches,
-                       "moved": int((x_k != xs).any(dim=1).sum())}})
-    return {"launches": launches["k2"] // K2_ROUTE_REPEATS,
+          "k1_route": {"sweeps": SWEEPS, "ms_per_solve": times,
+                       "restarts_per_s": R_MAIN / ms_route * 1e3,
+                       "best_f": float(results[0][1]),
+                       "best_viol": float(results[0][2]),
+                       "launches": k1_counts,
+                       "k1_alone_ms": [ms_k1_a, ms_k1_b],
+                       "k1_sample": counts, **k1_bound},
+          "k2_route_mega_false": {
+              "sweeps": K2_ROUTE_SWEEPS, "ms_per_solve": ms_k2route,
+              "restarts_per_s": R_MAIN / ms_k2route * 1e3,
+              "best_f": float(res_k2[1]), "best_viol": float(res_k2[2]),
+              "launches": k2_counts,
+              "k2_alone": {"coordinate": N_K2 // 2, **alone, **b},
+              "vs_plain": {"R": R_K2_CHECK, "sweeps": K2_CHECK_SWEEPS,
+                           "restarts_identical": int(same.sum()),
+                           "k2_launches": check_launches,
+                           "moved": int((x_k != xs).any(dim=1).sum())}},
+          "ms_per_solve_side_by_side": {
+              f"k1, {SWEEPS} sweeps": ms_route,
+              f"k2 (mega=False), {K2_ROUTE_SWEEPS} sweeps": ms_k2route}})
+    return {"k1": {"launches": k1_counts["k1"], "ms": (ms_k1_a + ms_k1_b) / 2,
+                   "ms_per_solve": ms_route, "bound_ms": k1_bound["bound_ms"],
+                   "bound_by": k1_bound["bound_by"],
+                   "bound_from": f"sampled: K1's plain version on the CPU, "
+                                 f"{counts['R']} of {R_MAIN} starts, scaled",
+                   "shape": f"n={N_K2}, m={M_K2}, E={E}, R={R_MAIN}, "
+                            f"{SWEEPS} sweeps"},
+            "launches": k2_counts["k2"],
             "ms": alone["ms"], "max_abs_err": alone["max_abs_dv"],
             "plain_ms": alone["plain_ms"], "bound_ms": b["bound_ms"],
-            "bound_by": b["bound_by"], "ms_per_solve": ms_route,
+            "bound_by": b["bound_by"], "ms_per_solve": ms_k2route,
             "shape": f"n={N_K2}, m={M_K2}, E={E}, R={R_MAIN} (split)"}
 
 
@@ -750,7 +824,102 @@ def _k1_shapes():
     return out
 
 
-def phase_k1(arrays):
+# K1 above n = 128, where the CD route sends it by the card's rule (n, m,
+# share of equality rows): at n = 129 m + 1 below 32 and m + E above it;
+# at n = 256 m + 1 above 32 (the n = 256 route's form, whose m + 1 and
+# m + E lie below 32, is the last case); (128, 79), the first shape the
+# TPU's budget sent to K2.  One plain run a shape, R_WIDE starts, 1 sweep,
+# made on the card by a process of its own while the kernels are built
+# (`--k1-wide`); K1 runs at R_WIDE and on the first start alone (R = 1),
+# which the plain run's lane 0 answers: it runs every lane on its own.
+K1_WIDE_SHAPES = [(129, 30, 1.0), (256, 32, 0.0), (128, 79, 0.0)]
+R_WIDE = 300
+
+
+def route_starts(R, n=N_K2, seed=1):
+    """The starts solve_restarts draws from a generator seeded `seed`."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((R, n), generator=gen, dtype=torch.float32,
+                       device="cuda")
+
+
+def k1_wide_cases():
+    """(name, arrays, starts) of K1's cases above n = 128: K1_WIDE_SHAPES
+    with numpy starts, then the n = 256 route's form with the first R_WIDE
+    of its first timed solve's starts (drawn on the card)."""
+    cases = []
+    for n, m, eq_frac in K1_WIDE_SHAPES:
+        arrays, rng = k1_shape_arrays(n, m, eq_frac, n + m + R_WIDE)
+        cases.append((f"n={n},m={m},eq={eq_frac}", arrays,
+                      (0.5 * rng.standard_normal((R_WIDE, n)))
+                      .astype(np.float32)))
+    cases.append((f"route n={N_K2},m={M_K2}",
+                  bench_form_arrays(0, N_K2, M_K2),
+                  route_starts(R_MAIN)[:R_WIDE].cpu().numpy()))
+    return cases
+
+
+def start_k1_wide(workdir):
+    """Start the plain-version runs of K1's cases above n = 128 on the card
+    in a process of their own (`--k1-wide`): they launch no kernel and are
+    bound by the host's launches, so they run beside the build and
+    `plain_runs`."""
+    path = os.path.join(workdir, "k1_wide.npz")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--k1-wide", path])
+    proc.path = path
+    return proc
+
+
+def k1_wide_plain(path):
+    """(run as `--k1-wide PATH`) K1's plain version on the card on each of
+    `k1_wide_cases`, 1 sweep: the starts, the outputs and the ms."""
+    import torch
+    sys.path.insert(0, REPO)
+    from qcqp_tpu_torch.convert import form_from_numpy
+    from qcqp_tpu_torch.kernels.cd_sweep_kernel import two_phase_sweeps_ref
+    out = {}
+    for i, (_, arrays, xs) in enumerate(k1_wide_cases()):
+        form = form_from_numpy(*arrays, device="cuda", dtype=torch.float32)
+        xs = torch.from_numpy(xs).cuda()
+        ms, x = host_ms(lambda: two_phase_sweeps_ref(
+            form.P, form.q, form.r, form.eq_idx(), xs, num_iters=1))
+        out.update({f"xs{i}": xs.cpu().numpy(), f"x{i}": x.cpu().numpy(),
+                    f"ms{i}": ms})
+    np.savez(path, **out)
+
+
+def _k1_wide(proc):
+    """K1 on `k1_wide_cases` at R_WIDE and R = 1 against the `--k1-wide`
+    process's plain runs, every lane bit for bit."""
+    import torch
+    from qcqp_tpu_torch.convert import form_from_numpy
+    from qcqp_tpu_torch.kernels.cd_sweep_kernel import two_phase_sweeps
+    if proc.wait(timeout=600) != 0:
+        raise AssertionError(f"the --k1-wide process exited {proc.returncode}")
+    plain = np.load(proc.path)
+    out = []
+    for i, (name, arrays, xs) in enumerate(k1_wide_cases()):
+        if not np.array_equal(plain[f"xs{i}"], xs):
+            raise AssertionError(f"{name}: the --k1-wide process ran other "
+                                 "starts")
+        form = form_from_numpy(*arrays, device="cuda", dtype=torch.float32)
+        eq_idx = form.eq_idx()
+        xs = torch.from_numpy(xs).cuda()
+        res = {"case": name, "E": len(eq_idx), "plain_ms": float(plain[f"ms{i}"])}
+        for R in (R_WIDE, 1):
+            xk = two_phase_sweeps(form.P, form.q, form.r, eq_idx, xs[:R],
+                                  num_iters=1).cpu().numpy()
+            agree = _k1_agrees(f"{name} at R = {R}", xk, plain[f"x{i}"][:R])
+            res[f"R={R}"] = {"lanes_identical": agree["lanes_identical"],
+                             "moved": int((xk != xs[:R].cpu().numpy())
+                                          .any(axis=1).sum())}
+        out.append(res)
+    return out
+
+
+def phase_k1(arrays, wide):
     import torch
     from qcqp_tpu_torch.kernels.cd_sweep_kernel import (
         phase1_sweeps, phase1_sweeps_ref, two_phase_sweeps,
@@ -819,6 +988,9 @@ def phase_k1(arrays):
                              "order")
     t0 = time.perf_counter()
     shapes = _k1_shapes()
+    shapes_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    above_128 = _k1_wide(wide)
     from qcqp_tpu_torch.kernels.cd_sweep_kernel import launch_geometry
     warps, warp_floats, smem = launch_geometry(
         N, M, len(eq_idx), R_MAIN,
@@ -826,7 +998,8 @@ def phase_k1(arrays):
     emit({"phase": "k1", "n": N, "m": M, "R": R_K1_CHECK,
           "sweeps": K1_CHECK_SWEEPS, "identity_at_0": True,
           "permutation_invariant": True, **res, "shapes": shapes,
-          "shapes_seconds": time.perf_counter() - t0,
+          "shapes_seconds": shapes_s, "above_128": above_128,
+          "above_128_seconds": time.perf_counter() - t0,
           "ptxas": _ptxas("cd_sweep_kernel"),
           "geometry_at_main_path": {"warps_a_block": warps,
                                     "shared_bytes_a_warp": 4 * warp_floats,
@@ -2610,32 +2783,62 @@ def start_k1_sample(workdir):
         stdout=subprocess.PIPE, text=True)
 
 
+def _plain_counts(arrays, xs):
+    """K1's plain version in float32 on the CPU on starts xs at SWEEPS
+    sweeps: its restart-sweeps and probes, and the CPU seconds."""
+    import torch
+    from qcqp_tpu_torch.kernels import cd_sweep_kernel as k1
+    from qcqp_tpu_torch.kernels.onevar_kernel import bisect_accept
+    P, q, r, is_eq = arrays
+    k1._phase1_loop.lane_sweeps = k1._phase2_loop.lane_sweeps = 0
+    bisect_accept.probes = 0
+    t0 = time.perf_counter()
+    k1.two_phase_sweeps_ref(
+        *(torch.tensor(a, dtype=torch.float32) for a in (P, q, r)),
+        tuple(int(i) for i in np.nonzero(is_eq)[0]), torch.from_numpy(xs),
+        num_iters=SWEEPS)
+    return {"E": int(is_eq.sum()), "R": len(xs),
+            "lane_sweeps": k1._phase1_loop.lane_sweeps
+            + k1._phase2_loop.lane_sweeps,
+            "probes": int(bisect_accept.probes),
+            "cpu_seconds": time.perf_counter() - t0}
+
+
 def k1_sample_counts(path):
-    """(run as `--k1-sample PATH`) K1's plain version in float32 on the
-    CPU on each sampled scenario's R_SERVE starts at the serving shape:
-    its restart-sweeps and probes, one JSON line."""
+    """(run as `--k1-sample PATH`) `_plain_counts` on each sampled
+    scenario's R_SERVE starts at the serving shape, one JSON line."""
     import torch
     torch.set_num_threads(2)
     sys.path.insert(0, REPO)
-    from qcqp_tpu_torch.kernels import cd_sweep_kernel as k1
-    from qcqp_tpu_torch.kernels.onevar_kernel import bisect_accept
     xs = np.load(path)["xs"]
-    out = []
-    for j, s in enumerate(K1_SAMPLE):
-        P, q, r, is_eq = bench_form_arrays(s)
-        k1._phase1_loop.lane_sweeps = k1._phase2_loop.lane_sweeps = 0
-        bisect_accept.probes = 0
-        t0 = time.perf_counter()
-        k1.two_phase_sweeps_ref(
-            *(torch.tensor(a, dtype=torch.float32) for a in (P, q, r)),
-            tuple(int(i) for i in np.nonzero(is_eq)[0]),
-            torch.from_numpy(xs[j]), num_iters=SWEEPS)
-        out.append({"scenario": s, "E": int(is_eq.sum()),
-                    "lane_sweeps": k1._phase1_loop.lane_sweeps
-                    + k1._phase2_loop.lane_sweeps,
-                    "probes": int(bisect_accept.probes),
-                    "cpu_seconds": time.perf_counter() - t0})
-    print(json.dumps(out), flush=True)
+    print(json.dumps([{"scenario": s, **_plain_counts(bench_form_arrays(s),
+                                                      xs[j])}
+                      for j, s in enumerate(K1_SAMPLE)]), flush=True)
+
+
+R_ROUTE_SAMPLE = 128               # n = 256 route starts that size K1's bound
+
+
+def start_k1_route_sample(workdir):
+    """Start the count of K1's work on the n = 256 route: the first
+    R_ROUTE_SAMPLE of its first timed solve's starts, drawn here on the
+    card, go to a file, and a CPU process (`--k1-route-sample`) runs K1's
+    plain version on them while the phases before `k2_route` run."""
+    path = os.path.join(workdir, "k1_route_sample.npy")
+    np.save(path, route_starts(R_MAIN)[:R_ROUTE_SAMPLE].cpu().numpy())
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--k1-route-sample",
+         path], stdout=subprocess.PIPE, text=True)
+
+
+def k1_route_sample_counts(path):
+    """(run as `--k1-route-sample PATH`) `_plain_counts` on the sampled
+    starts of the n = 256 route, one JSON line."""
+    import torch
+    torch.set_num_threads(2)
+    sys.path.insert(0, REPO)
+    print(json.dumps(_plain_counts(bench_form_arrays(0, N_K2, M_K2),
+                                   np.load(path))), flush=True)
 
 
 def _per_scenario_routes(stacked):
@@ -3329,7 +3532,8 @@ def _profile_solve(solve, kernel=None, top=6, host=True, **label):
 
 def phase_profile(arrays):
     """One profiled solve per route (CD through K1 and K2 at R = 10,240,
-    the default CD route at n = 256 and its phases' split, ADMM through K3
+    the n = 256 form through K1 and through K2 with its phases' split,
+    ADMM through K3
     at R = 1,024 and 10,240, DCCP through K4, the SDR's Newton-Schulz and
     vec routes, the NLP improve at R = 128 and 10,240), and K1's time
     over R."""
@@ -3373,8 +3577,9 @@ def phase_profile(arrays):
         xs = suggest_batch(form, R, gen())
         _profile_solve(lambda: improve_nlp(form, xs), host=False, top=10,
                        route="nlp", R=R)
-    # the default route above n = 128 (phase k2_route), last: its profile
-    # records about 720,000 device events, and every profile taken after
+    # the n = 256 form of phase k2_route: the default route through K1,
+    # then the K2 route (mega=False) last: its profile records about
+    # 720,000 device events at 10 sweeps, and every profile taken after
     # one that large loses kernel records (K3's phase-1 launch, K4's
     # launch at R = 128); then its phase 1 alone on the same starts: the
     # rest of the solve is the phase-2 gate, the unfused phase 2 and the
@@ -3384,16 +3589,20 @@ def phase_profile(arrays):
                             dtype=torch.float32)
     _profile_solve(lambda: solve_restarts(form2, R_MAIN, gen(),
                                           num_iters=SWEEPS),
+                   kernel="cd_sweep_kernel", route="k1_n256", n=N_K2,
+                   m=M_K2, R=R_MAIN, sweeps=SWEEPS)
+    _profile_solve(lambda: solve_restarts(form2, R_MAIN, gen(),
+                                          num_iters=SWEEPS, mega=False),
                    kernel="phase1_kernel", top=10, host=False,
-                   route="k2_default",
+                   route="k2_mega_false_n256",
                    n=N_K2, m=M_K2, R=R_MAIN, sweeps=SWEEPS)
     xs2 = suggest_batch(form2, R_MAIN, gen())
     ms_p1, x1 = host_ms(lambda: fused.coord_descent_phase1_fused(
         form2, xs2, SWEEPS, eq_idx=form2.eq_idx()))
     ms_all, _ = host_ms(lambda: fused.improve_coord_descent_fused(
-        form2, xs2, num_iters=SWEEPS))
+        form2, xs2, num_iters=SWEEPS, mega=False))
     from qcqp_tpu_torch.core import max_violation_batch
-    emit({"phase": "profile", "route": "k2_default_split", "n": N_K2,
+    emit({"phase": "profile", "route": "k2_mega_false_split", "n": N_K2,
           "R": R_MAIN, "phase1_ms": ms_p1, "improve_ms": ms_all,
           "phase2_and_gate_ms": ms_all - ms_p1,
           "feasible_after_phase1": int((max_violation_batch(form2, x1)
@@ -3471,6 +3680,13 @@ def main():
     args.add_argument("--k1-sample", metavar="PATH",
                       help="(internal) count K1's plain version on the "
                            "sampled starts in PATH, on the CPU")
+    args.add_argument("--k1-route-sample", metavar="PATH",
+                      help="(internal) count K1's plain version on the "
+                           "sampled n = 256 route starts in PATH, on the "
+                           "CPU")
+    args.add_argument("--k1-wide", metavar="PATH",
+                      help="(internal) K1's plain version on the card on "
+                           "the cases above n = 128, saved to PATH")
     args.add_argument("--cpu-traces", metavar="PATH",
                       help="(internal) phase tooling's CPU trace replays, "
                            "saved to PATH")
@@ -3479,16 +3695,21 @@ def main():
     args = args.parse_args()
     if args.k1_sample:
         return k1_sample_counts(args.k1_sample)
+    if args.k1_route_sample:
+        return k1_route_sample_counts(args.k1_route_sample)
     if args.cpu_traces:
         return cpu_traces(args.cpu_traces)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device")
     if args.dist_worker:
         return dist_worker(args.dist_worker)
+    if args.k1_wide:
+        return k1_wide_plain(args.k1_wide)
     sys.path.insert(0, REPO)
     import qcqp_tpu_torch  # noqa: F401  (fails outside a checkout)
     with tempfile.TemporaryDirectory() as workdir:
-        procs = [start_k1_sample(workdir), start_cpu_traces(workdir)]
+        procs = [start_k1_wide(workdir), start_k1_sample(workdir),
+                 start_k1_route_sample(workdir), start_cpu_traces(workdir)]
         try:
             run_phases(args, *procs, workdir)
         finally:
@@ -3498,7 +3719,7 @@ def main():
                 proc.wait()
 
 
-def run_phases(args, sample, cpu_proc, workdir):
+def run_phases(args, wide, sample, route_sample, cpu_proc, workdir):
     import threading
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3522,12 +3743,12 @@ def run_phases(args, sample, cpu_proc, workdir):
     build.join()
     smi = timed("device", phase_device)
     k2 = timed("k2", phase_k2, arrays[3])
-    k1_err = timed("k1", phase_k1, arrays)
+    k1_err = timed("k1", phase_k1, arrays, wide)
     timed("golden", phase_golden)
     launches, ms_main, ms_k1, ms_plain, k1_main_err, k1_bound, main_best = \
         timed("main_path", phase_main, arrays, plain)
     k2_route = timed("k2_route", phase_k2_route,
-                     bench_form_arrays(0, N_K2, M_K2))
+                     bench_form_arrays(0, N_K2, M_K2), route_sample)
     k3_err = timed("k3", phase_k3, arrays)
     admm = timed("admm_path", phase_admm_path, arrays)
     timed("admm_golden", phase_admm_golden)
@@ -3564,6 +3785,9 @@ def run_phases(args, sample, cpu_proc, workdir):
          "library_ms": None,
          "shape": f"n={N}, m={M}, R={R_MAIN}, {SWEEPS} sweeps",
          "ms_main_path": ms_main,
+         "at_n256_route": {**k2_route["k1"],
+                           "ms_k2_route_mega_false": k2_route["ms_per_solve"],
+                           "k2_route_sweeps": K2_ROUTE_SWEEPS},
          "launches_spectral_cd": spectral["k1_launches"],
          "launches_examples": {name: n["k1"] for name, n
                                in tooling["launches"].items()},
@@ -3592,8 +3816,8 @@ def run_phases(args, sample, cpu_proc, workdir):
          "library_ms": None, "shape": k2["shape"],
          "launches_by_route": {
              f"n={N}, m={M}, mega=False, one solve": launches["k2"],
-             f"n={N_K2}, m={M_K2}, default, per solve":
-                 k2_route["launches"]},
+             f"n={N_K2}, m={M_K2}, mega=False, one solve of "
+             f"{K2_ROUTE_SWEEPS} sweeps": k2_route["launches"]},
          "at_k2_route": {**{k: k2_route[k]
                             for k in ("shape", "ms", "plain_ms", "bound_ms",
                                       "bound_by", "ms_per_solve")},

@@ -371,7 +371,10 @@ cd_sweep_kernel(const float* Pt, const float* qt, const float* r,
 // 5(m+e_max)) shared floats a warp; the wrapper chooses both
 // (cd_sweep_kernel.launch_geometry at E_max and S R restarts).  Returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
-// geometry the kernel does not take.
+// geometry the kernel does not take.  Offsets inside one form's Pt and qt
+// are int (b * k1 + i < n (m+1)); a form's base and a restart's x are
+// size_t.  A warp state that fits a block (3n + 9m < 58,112 floats)
+// keeps n (m+1) near 3.2e7 at most, and the check below refuses the rest.
 extern "C" int qk_cd_sweeps(const float* Pt, const float* qt, const float* r,
                             const float* eqmask, const int* eq_idx,
                             const int* e_cnt, int e_max, float* x, int n,
@@ -380,7 +383,8 @@ extern "C" int qk_cd_sweeps(const float* Pt, const float* qt, const float* r,
                             int phase2, int warps, int warp_floats,
                             void* stream) {
   if (warps < 1 || warps > kMaxWarps || S < 0 || S > 65535 || R < 0 ||
-      warp_floats < 3 * n + 4 * (m + 1) + 5 * (m + e_max))
+      warp_floats < 3 * n + 4 * (m + 1) + 5 * (m + e_max) ||
+      (long long)n * (m + 1) > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   if (S == 0 || R == 0) return 0;
   const size_t smem = (size_t)warps * warp_floats * sizeof(float);

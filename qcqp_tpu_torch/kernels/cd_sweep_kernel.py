@@ -282,17 +282,32 @@ MAX_WARPS = 4                  # restarts a block (kMaxWarps in the source)
 MAX_SCENARIOS = 65535          # forms a launch (the grid's y dimension)
 
 
+def warp_floats(n, m, e):
+    """Shared floats one restart's state takes at n, m, E: x (n), the warm
+    brackets (2n), F, t2, t1, t0 (m+1 each) and five canonical fields of
+    the m+E rows, rounded up to 16 bytes."""
+    return -(-(3 * n + 4 * (m + 1) + 5 * (m + e)) // 4) * 4
+
+
+def holds(n, m, e):
+    """Does K1 hold one restart at n, m, E (for a stack, its largest E)?
+    True when one warp's state fits in SMEM_BLOCK_MAX, K1's only limit on
+    the shape; no card and no launch needed.  The CD route's rule
+    (solvers/coord_descent_fused.py) and `launch_geometry` both read it.
+    Under it the kernel's int offsets into Pt (up to n (m+1)) stay below
+    2^31: 3n + 9m < 58,112 bounds n (m+1) by about 3.2e7."""
+    return 4 * warp_floats(n, m, e) <= SMEM_BLOCK_MAX
+
+
 def launch_geometry(n, m, e, R=None, sms=None):
     """(warps a block, shared floats a warp, shared bytes a block) for K1
-    at n, m, E (for a stack: its largest E, and R = S x R restarts): a
-    warp holds x (n), the warm brackets (2n), F, t2, t1, t0 (m+1 each) and
-    five canonical fields of the m+E rows, rounded up to 16 bytes.  Up to
-    MAX_WARPS warps within SMEM_BLOCK_MAX; given R and the card's SM
+    at n, m, E (for a stack: its largest E, and R = S x R restarts).  Up
+    to MAX_WARPS warps within SMEM_BLOCK_MAX; given R and the card's SM
     count, fewer, so that a small batch spreads over the SMs.  Raises
-    ValueError when one warp's state exceeds SMEM_BLOCK_MAX."""
-    warp_floats = -(-(3 * n + 4 * (m + 1) + 5 * (m + e)) // 4) * 4
-    per_warp = 4 * warp_floats
-    if per_warp > SMEM_BLOCK_MAX:
+    ValueError where K1 does not hold a restart (`holds`)."""
+    floats = warp_floats(n, m, e)
+    per_warp = 4 * floats
+    if not holds(n, m, e):
         raise ValueError(
             f"cd_sweeps: one restart's state at n={n}, m={m}, E={e} takes "
             f"{per_warp} bytes of shared memory, above the {SMEM_BLOCK_MAX} "
@@ -300,7 +315,7 @@ def launch_geometry(n, m, e, R=None, sms=None):
     warps = min(MAX_WARPS, SMEM_BLOCK_MAX // per_warp)
     if R is not None and sms:
         warps = max(1, min(warps, R // sms))
-    return warps, warp_floats, warps * per_warp
+    return warps, floats, warps * per_warp
 
 
 def lane_layout(P, q):
@@ -348,7 +363,7 @@ def _launch(P, q, r, eq_idx, xs, num_iters, viol_tol, tol, n_bisect,
     e_max = idx.shape[1]
     dev = P.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    warps, warp_floats, _ = launch_geometry(n, m, e_max, S * R, sms)
+    warps, floats, _ = launch_geometry(n, m, e_max, S * R, sms)
     mask, idx, counts = (torch.from_numpy(a.reshape(-1) if a.size else
                                           np.zeros(1, a.dtype)).to(dev)
                          for a in (mask, idx, counts))
@@ -361,7 +376,7 @@ def _launch(P, q, r, eq_idx, xs, num_iters, viol_tol, tol, n_bisect,
                           e_max, x.data_ptr(), n, m, S, R, int(num_iters),
                           float(tol), float(viol_tol), int(n_bisect),
                           int(bool(phase1)), int(bool(phase2)), warps,
-                          warp_floats, stream)
+                          floats, stream)
     _build.check(rc, "qk_cd_sweeps")
     return x[0] if single else x
 

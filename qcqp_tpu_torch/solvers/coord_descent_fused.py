@@ -1,27 +1,40 @@
 """Batch-level two-phase coordinate descent through the CD kernels
 (JAX counterpart: qcqp_tpu/solvers/coord_descent_fused.py).
 
-Two routes, chosen by the same rule as the JAX package:
+Two routes:
 
   * K1 (kernels/cd_sweep_kernel.two_phase_sweeps): the whole two-phase
-    improve in one launch, when the equality pattern is static and
-    `_mega_fits` holds (n <= 128);
-  * otherwise phase 1 at the batch level with K2
+    improve in one launch, wherever K1 holds a restart
+    (`cd_sweep_kernel.holds`: one warp's state, 3n + 4(m+1) + 5(m+E)
+    floats, within a block's shared memory);
+  * otherwise, or with mega=False, phase 1 at the batch level with K2
     (kernels/onevar_kernel.phase1_coordinate_update) once per coordinate,
     carrying the gradient cache G (R, m+1, n) and F (R, m+1) between
     launches, then the unfused phase 2 (solvers/coord_descent.py) on the
     restarts that are viol_tol-feasible.
 
 A stack of S forms of one shape (the scenario axis; parallel/scenarios.py)
-takes the same rule in `improve_coord_descent_fused_stack`: one K1 launch
-for all S x R restarts, or the K2 route one scenario at a time.
+takes the same rule in `improve_coord_descent_fused_stack`, at the stack's
+largest E: one K1 launch for all S x R restarts, or the K2 route one
+scenario at a time.
 
-`_mega_fits` is the JAX package's TPU VMEM budget, kept as it is so both
-packages route alike; deciding the rule for the H100 is a measurement for a
-later change.  In PyTorch the form is always concrete, so the equality
-pattern is always static; `coord_descent_phase1_fused(eq_idx=None)` runs
-the generic K2 variant (data-dependent equality mask), which the JAX
-package uses under an outer trace.
+The rule is a stated deviation from the JAX routing.  The JAX package's
+`_mega_fits` is a budget of 10 MiB of TPU VMEM, which sends every n > 128
+(and m > 78 at n = 128) to its K2 route.  K1 on the H100 keeps only a
+restart's state in shared memory and streams P from L2 or memory, so its
+one limit is `holds`, and it computes what the JAX route computes there
+(statistical parity, tests/test_torch_cd_route.py).  The numbers that set
+it (benchmarks/cd_routes.py on an NVIDIA H100 80GB HBM3, 700 W power
+limit; R = 10,240, bench.py's form, 2 sweeps each): at n = 256, m = 20
+(P 5.5 MB, inside the 50 MB L2) K1 took 87.9-97.9 ms a solve against
+2,367 ms for the K2 route; at n = 512, m = 50 (P 53.5 MB, past the L2)
+584.3-592.8 ms against 4,713 ms.  K1 wins past the L2 as well, so the
+rule has no bound on P's bytes.
+
+In PyTorch the form is always concrete, so the equality pattern is always
+static; `coord_descent_phase1_fused(eq_idx=None)` runs the generic K2
+variant (data-dependent equality mask), which the JAX package uses under
+an outer trace.
 """
 
 from __future__ import annotations
@@ -29,7 +42,7 @@ from __future__ import annotations
 import torch
 
 from ..core import QCQPForm, max_violation_batch
-from ..kernels.cd_sweep_kernel import two_phase_sweeps
+from ..kernels.cd_sweep_kernel import holds, two_phase_sweeps
 from ..kernels.onevar_kernel import phase1_coordinate_update
 from .coord_descent import _refresh, _viol_from_F, coord_descent_phase2
 
@@ -88,15 +101,16 @@ def coord_descent_phase1_fused(form: QCQPForm, xs, num_iters=1000,
     return x
 
 
-# VMEM budget of the JAX mega-kernel (a TPU figure, kept as the routing
-# rule; see the module docstring).
-_MEGA_VMEM_BUDGET = 10 * 2**20
-
-
-def _mega_fits(form: QCQPForm) -> bool:
-    k1, n = form.P.shape[0], form.P.shape[-1]
-    npad = -(-n // 8) * 8
-    return 2 * k1 * npad * 128 * 4 < _MEGA_VMEM_BUDGET if n <= 128 else False
+def _use_k1(mega, n, m, e) -> bool:
+    """`mega` resolved at n, m and E (a stack: its largest E): None takes
+    K1 wherever it holds a restart (`cd_sweep_kernel.holds`; module
+    docstring); True where K1 cannot hold one raises."""
+    if mega is None:
+        return holds(n, m, e)
+    if mega and not holds(n, m, e):
+        raise ValueError(f"mega=True: K1 does not hold a restart at n={n}, "
+                         f"m={m}, E={e}")
+    return bool(mega)
 
 
 def improve_coord_descent_fused(form: QCQPForm, xs, num_iters=1000,
@@ -105,13 +119,16 @@ def improve_coord_descent_fused(form: QCQPForm, xs, num_iters=1000,
     """Batched two-phase CD through the kernels.  xs (R, n) -> (R, n).
 
     eq_idx: the static equality rows (default: read from form.is_eq).
-    mega: run K1 (default: whenever `_mega_fits`).
+    mega: run K1 (default: wherever `cd_sweep_kernel.holds`, that is
+    wherever a restart's state fits a block's shared memory, at any n;
+    the JAX package stops at n = 128, a TPU budget: a stated deviation,
+    whose H100 numbers the module docstring gives); mega=False runs
+    phase 1 through K2 and the unfused phase 2.  mega=True on a shape K1
+    cannot hold raises, on the CPU too.
     """
     if eq_idx is None:
         eq_idx = form.eq_idx()
-    if mega is None:
-        mega = _mega_fits(form)
-    if mega:
+    if _use_k1(mega, form.n, form.m, len(eq_idx)):
         return two_phase_sweeps(form.P, form.q, form.r, eq_idx, xs,
                                 num_iters=num_iters, viol_tol=viol_tol,
                                 tol=tol, n_bisect=N_BISECT,
@@ -132,26 +149,26 @@ def improve_coord_descent_fused_stack(stacked: QCQPForm, xs, num_iters=1000,
                                       eq_idx=None, mega=None):
     """The same improve for S stacked forms of one shape (P (S, m+1, n, n),
     ...), xs (S, R, n) -> (S, R, n): where K1 runs (`mega`, default
-    `_mega_fits` of the shape), one K1 launch for all S x R restarts, each
-    scenario with its own equality pattern (eq_idx, when given, for every
-    scenario, as the JAX package applies it under vmap); otherwise the K2
-    route one scenario at a time."""
+    `cd_sweep_kernel.holds` at the stack's largest E), one K1 launch for
+    all S x R restarts, each scenario with its own equality pattern
+    (eq_idx, when given, for every scenario, as the JAX package applies
+    it under vmap); otherwise the K2 route one scenario at a time."""
     S = stacked.P.shape[0]
     forms = [QCQPForm(*(a[i] for a in stacked)) for i in range(S)]
-    if mega is None:
-        mega = bool(forms) and _mega_fits(forms[0])
-    if not mega:
+    if eq_idx is None:
+        eqs = [tuple(int(j) for j in row.nonzero()[0])
+               for row in stacked.is_eq.cpu().numpy()]
+    else:
+        eqs = [eq_idx] * S
+    if not (forms and _use_k1(mega, stacked.P.shape[-1],
+                              stacked.P.shape[1] - 1,
+                              max(len(e) for e in eqs))):
         out = xs.clone()
         for i, form in enumerate(forms):
             out[i] = improve_coord_descent_fused(
                 form, xs[i], num_iters, viol_tol, tol, phase1, eq_idx,
                 mega=False)
         return out
-    if eq_idx is None:
-        eqs = [tuple(int(j) for j in row.nonzero()[0])
-               for row in stacked.is_eq.cpu().numpy()]
-    else:
-        eqs = [eq_idx] * S
     return two_phase_sweeps(stacked.P, stacked.q, stacked.r, eqs, xs,
                             num_iters=num_iters, viol_tol=viol_tol, tol=tol,
                             n_bisect=N_BISECT, phase1=phase1).to(xs.dtype)

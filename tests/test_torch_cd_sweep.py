@@ -217,10 +217,11 @@ def test_fused_k2_route_matches_jax_pooled():
 
 
 def test_default_route_above_128_matches_jax_pooled():
-    """Above n = 128 `_mega_fits` is false, so improve_coord_descent_fused
-    runs phase 1 through K2 once per coordinate (here its plain version)
-    and then the unfused phase 2, as the JAX route does with its Pallas
-    kernel in interpret=True."""
+    """The K2 route at n = 130 (mega=False: phase 1 through K2 once per
+    coordinate, here its plain version, then the unfused phase 2) against
+    the JAX package's default route there, its Pallas K2 in
+    interpret=True.  The port's default at n = 130 is K1
+    (tests/test_torch_cd_route.py)."""
     def jax_fn(arrays, eq_idx, xs):
         form = JForm(*map(jnp.asarray, arrays))
         assert not jfused._mega_fits(form)
@@ -229,20 +230,20 @@ def test_default_route_above_128_matches_jax_pooled():
 
     def torch_fn(arrays, eq_idx, xs):
         form = form_from_numpy(*arrays, device="cpu", dtype=torch.float32)
-        assert not tfused._mega_fits(form)
+        assert tk.holds(form.n, form.m, len(eq_idx))
         return tfused.improve_coord_descent_fused(
-            form, torch.from_numpy(xs), num_iters=2).numpy()
+            form, torch.from_numpy(xs), num_iters=2, mega=False).numpy()
     _run_pooled(130, 4, 0.5, jax_fn, torch_fn, never_worse=True, restarts=64)
 
 
 def test_improve_fused_routes():
-    """mega (the default at n <= 128) is K1; mega=False is phase 1 through
-    K2 then the unfused phase 2 on the feasible restarts; the generic K2
-    variant (eq_idx=None) equals the split one."""
+    """mega (the default wherever K1 holds a restart) is K1; mega=False is
+    phase 1 through K2 then the unfused phase 2 on the feasible restarts;
+    the generic K2 variant (eq_idx=None) equals the split one."""
     arrays, eq_idx, rng = _arrays(7, 4, 13)
     form = form_from_numpy(*arrays, device="cpu", dtype=torch.float32)
     xs = torch.from_numpy(rng.standard_normal((40, 7)).astype(F32))
-    assert tfused._mega_fits(form)
+    assert tk.holds(form.n, form.m, len(eq_idx))
     mega = tfused.improve_coord_descent_fused(form, xs, num_iters=5)
     np.testing.assert_array_equal(
         mega.numpy(), tk.two_phase_sweeps_ref(form.P, form.q, form.r, eq_idx,
@@ -256,13 +257,12 @@ def test_improve_fused_routes():
     v_s, _ = _quality(arrays, split.numpy())
     v0, _ = _quality(arrays, xs.numpy())
     assert (v_m <= v0 + 1e-3).all() and (v_s <= v0 + 1e-3).all()
-    # the JAX routing rule, unchanged
-    big = form_from_numpy(np.zeros((2, 129, 129)), np.zeros((2, 129)),
-                          np.zeros(2), [False], device="cpu",
-                          dtype=torch.float32)
-    assert not tfused._mega_fits(big)
-    assert jfused._mega_fits(JForm(*map(jnp.asarray, arrays))) == \
-        tfused._mega_fits(form)
+    # the card's rule: K1 at n = 129 too, where the JAX package's TPU
+    # budget routes to K2; both take K1 at this form's n = 7
+    big = [np.zeros((2, 129, 129)), np.zeros((2, 129)), np.zeros(2), [False]]
+    assert tk.holds(129, 1, 0)
+    assert not jfused._mega_fits(JForm(*map(jnp.asarray, big)))
+    assert jfused._mega_fits(JForm(*map(jnp.asarray, arrays)))
 
 
 def test_jax_cpu_vmap_unaffected():

@@ -2,12 +2,13 @@
 checked on the CPU: the launch geometry (warps a block, shared memory a
 warp) for every shape the CD route sends to K1, the lane layout of P and q,
 the C entry points' argument types against their sources, and the route
-choice of improve_coord_descent_fused, which is the JAX package's."""
+choice of improve_coord_descent_fused: K1 wherever its shared memory holds
+a restart (`cd_sweep_kernel.holds`), where the JAX package's TPU budget
+(`_mega_fits`) stops at n = 128."""
 
 import glob
 import os
 import re
-import types
 
 import numpy as np
 import pytest
@@ -23,37 +24,39 @@ from qcqp_tpu_torch.kernels import cd_sweep_kernel as tk
 from qcqp_tpu_torch.solvers import coord_descent_fused as tfused
 
 
-def _fits(n, k1):
-    """`_mega_fits` on a form of shape (k1, n, n), with no data."""
-    P = torch.empty((k1, n, n), device="meta")
-    return tfused._mega_fits(types.SimpleNamespace(P=P))
-
-
-def _largest_m(n):
-    """The largest m that `_mega_fits` routes to K1 at n (None: no m)."""
-    if not _fits(n, 1):
+def _largest_m(n, all_eq=False):
+    """The largest m that the CD route sends to K1 at n, with E = 0 or
+    E = m (None: no m), by bisection on `cd_sweep_kernel.holds`."""
+    def fits(m):
+        return tk.holds(n, m, m if all_eq else 0)
+    if not fits(1):
         return None
-    lo, hi = 1, 1 << 16                 # _fits(n, lo) and not _fits(n, hi)
+    lo, hi = 1, 1 << 16                 # fits(lo) and not fits(hi)
     while hi - lo > 1:
         mid = (lo + hi) // 2
-        lo, hi = (mid, hi) if _fits(n, mid) else (lo, mid)
-    return lo - 1
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid)
+    return lo
 
 
-def test_largest_m_is_the_tpu_budget():
-    """The routing rule's edges, as the CD route's docstring gives them."""
-    assert _largest_m(1) == _largest_m(8) == 1278
-    assert _largest_m(128) == 78
-    assert _largest_m(129) is None
+def test_largest_m_is_the_shared_memory_limit():
+    """The routing rule's edges: 3n + 4(m+1) + 5(m+E) floats, rounded up
+    to 16 bytes, within 232,448 bytes (58,112 floats)."""
+    assert _largest_m(1) == 6456 and _largest_m(8) == 6453
+    assert _largest_m(128) == _largest_m(129) == 6413
+    assert _largest_m(8, all_eq=True) == 4148
+    assert _largest_m(19366) == 1 and _largest_m(19367) is None
+    assert _largest_m(19364, all_eq=True) == 1
+    assert _largest_m(19365, all_eq=True) is None
 
 
 @pytest.mark.parametrize("eq", ["none", "all"])
 def test_geometry_fits_every_k1_shape(eq):
-    """At every n = 1..128, at the largest m K1 takes, with E = 0 or m:
-    at least one warp, the state within the block's 227 KB, a warp's
-    floats covering 3n + 4(m+1) + 5(m+E) and 16-byte aligned."""
-    for n in range(1, 129):
-        m = _largest_m(n)
+    """At n = 1..256 and at every 97th n up to 19,364, at the largest m K1
+    takes with E = 0 or E = m: at least one warp, the state within the
+    block's 227 KB, a warp's floats covering 3n + 4(m+1) + 5(m+E) and
+    16-byte aligned; one more row and the geometry raises."""
+    for n in list(range(1, 257)) + list(range(257, 19365, 97)):
+        m = _largest_m(n, all_eq=eq == "all")
         e = m if eq == "all" else 0
         warps, warp_floats, nbytes = tk.launch_geometry(n, m, e)
         assert 1 <= warps <= tk.MAX_WARPS
@@ -63,6 +66,8 @@ def test_geometry_fits_every_k1_shape(eq):
         assert nbytes == 4 * warps * warp_floats <= tk.SMEM_BLOCK_MAX
         assert 4 * (warps + 1) * warp_floats > tk.SMEM_BLOCK_MAX or \
             warps == tk.MAX_WARPS
+        with pytest.raises(ValueError, match="shared memory"):
+            tk.launch_geometry(n, m + 1, e + (eq == "all"))
 
 
 def test_geometry_at_the_bench_shape():
@@ -154,13 +159,15 @@ def test_cpu_tensors_run_the_plain_version():
         before
 
 
-@pytest.mark.parametrize("n,m,k1_route", [(128, 78, True), (128, 79, False),
-                                          (129, 1, False), (8, 1278, True),
-                                          (8, 1279, False), (3, 2, True)])
-def test_k1_route_choice(monkeypatch, n, m, k1_route):
-    """improve_coord_descent_fused sends a form to K1 exactly when the JAX
-    package's rule (`_mega_fits`) does, and otherwise to phase 1 through
-    K2 and the unfused phase 2; mega=False forces the second route."""
+@pytest.mark.parametrize("n,m,k1,jax_k1", [
+    (128, 78, True, True), (128, 79, True, False), (129, 1, True, False),
+    (8, 1279, True, False), (8, 5050, True, False), (8, 5051, False, False)])
+def test_k1_route_choice(monkeypatch, n, m, k1, jax_k1):
+    """improve_coord_descent_fused sends a form to K1 exactly where K1
+    holds a restart (E = ceil(m / 2) here), and otherwise to phase 1
+    through K2 and the unfused phase 2; mega=False forces the second
+    route.  The JAX package's rule, for the record of the deviation,
+    takes K1 only at (128, 78)."""
     calls = []
 
     def record(route):
@@ -178,12 +185,13 @@ def test_k1_route_choice(monkeypatch, n, m, k1_route):
     is_eq = np.arange(m) % 2 == 0
     form = form_from_numpy(P, q, r, is_eq, device="cpu",
                            dtype=torch.float32)
+    assert tk.holds(n, m, int(is_eq.sum())) == k1
     xs = torch.zeros((2, n))
     xs[:, 0] = 1.0                  # feasible: the phase-2 gate lets it in
     tfused.improve_coord_descent_fused(form, xs, num_iters=1)
-    assert calls == (["k1"] if k1_route else ["k2", "phase2"])
+    assert calls == (["k1"] if k1 else ["k2", "phase2"])
     jform = JForm(*map(jnp.asarray, (P, q, r, is_eq)))
-    assert jfused._mega_fits(jform) == k1_route
+    assert jfused._mega_fits(jform) == jax_k1
     calls.clear()
     tfused.improve_coord_descent_fused(form, xs, num_iters=1, mega=False)
     assert calls == ["k2", "phase2"]

@@ -126,7 +126,7 @@ def test_k2_global_rows_equal_plain(cuda, monkeypatch, variant, m, e, R,
 
 
 def test_k2_route_above_128_equals_plain(cuda, monkeypatch):
-    """The default CD route at n = 130 (phase 1 through K2 once per
+    """The K2 route at n = 130 (mega=False: phase 1 through K2 once per
     coordinate, then the unfused phase 2) equals, on every restart, the
     same route with K2's plain version in K2's place."""
     from qcqp_tpu_torch.convert import form_from_numpy
@@ -135,20 +135,52 @@ def test_k2_route_above_128_equals_plain(cuda, monkeypatch):
     from qcqp_tpu_torch.solvers import coord_descent_fused as fused
     arrays, rng = _k1_form(130, 4, 1, 0.5)
     form = form_from_numpy(*arrays, device=cuda, dtype=torch.float32)
-    assert not fused._mega_fits(form)
     xs = torch.from_numpy(
         (0.5 * rng.standard_normal((70, 130))).astype(np.float32)).to(cuda)
     before = (k1.two_phase_sweeps.launches,
               tk.phase1_coordinate_update.launches)
-    out = fused.improve_coord_descent_fused(form, xs, num_iters=2)
+    out = fused.improve_coord_descent_fused(form, xs, num_iters=2,
+                                            mega=False)
     assert k1.two_phase_sweeps.launches == before[0]
     assert tk.phase1_coordinate_update.launches >= before[1] + 130
     monkeypatch.setattr(fused, "phase1_coordinate_update",
                         tk.phase1_coordinate_update_ref)
-    want = fused.improve_coord_descent_fused(form, xs, num_iters=2)
+    want = fused.improve_coord_descent_fused(form, xs, num_iters=2,
+                                             mega=False)
     torch.cuda.synchronize()
     assert torch.equal(out, want)
     assert (out != xs).any()
+
+
+def test_default_route_at_n256_is_one_k1_launch(cuda):
+    """bench.py's form at n = 256, m = 20 through solve_restarts with no
+    mega= argument: one K1 launch, no K2 launch, a finite best point; K1
+    on the same starts gives that best point."""
+    from qcqp_tpu_torch.convert import form_from_numpy
+    from qcqp_tpu_torch.kernels import cd_sweep_kernel as k1
+    from qcqp_tpu_torch.kernels import onevar_kernel as tk
+    from qcqp_tpu_torch.parallel.restarts import (best_point, solve_restarts,
+                                                  suggest_batch)
+    rng = np.random.default_rng(0)
+    n, m = 256, 20
+    A = rng.standard_normal((m + 1, n, n)) / np.sqrt(n)
+    arrays = (0.5 * (A + np.swapaxes(A, -1, -2)),
+              rng.standard_normal((m + 1, n)) / np.sqrt(n),
+              rng.standard_normal(m + 1), rng.random(m) < 0.5)
+    form = form_from_numpy(*arrays, device=cuda, dtype=torch.float32)
+    before = (k1.two_phase_sweeps.launches,
+              tk.phase1_coordinate_update.launches)
+    x, f, v = solve_restarts(form, 1024, torch.Generator(
+        device=cuda).manual_seed(1), num_iters=10)
+    assert (k1.two_phase_sweeps.launches - before[0],
+            tk.phase1_coordinate_update.launches - before[1]) == (1, 0)
+    assert x.shape == (n,) and torch.isfinite(x).all()
+    assert bool(torch.isfinite(f)) and bool(torch.isfinite(v))
+    xs = suggest_batch(form, 1024, torch.Generator(device=cuda).manual_seed(1))
+    out = k1.two_phase_sweeps(form.P, form.q, form.r, form.eq_idx(), xs,
+                              num_iters=10)
+    assert all(torch.equal(a, b)
+               for a, b in zip(best_point(form, out), (x, f, v)))
 
 
 def _k1_form(n, m, seed, eq_frac):
@@ -189,9 +221,11 @@ def _k1_holds(form, xs, num_iters):
 
 
 # (n, m, share of equality rows, R, sweeps): m + 1 and m + E on both sides
-# of 32 and 64 (one warp's lanes own rows i = lane mod 32), n = 1 and
-# n = 128 at the largest m that `_mega_fits` routes to K1, n = 8 at
-# m = 300; R = 1 and 300 (no multiple of a block's 4 warps).
+# of 32 and 64 (one warp's lanes own rows i = lane mod 32), n = 1 at
+# m = 1,278 and n = 128 at m = 78, n = 8 at m = 300; above n = 128, where
+# the CD route sends K1 by the card's rule, n = 129 and 256 with m + 1 and
+# m + E on both sides of 32, and (128, 79); R = 1 and 300 (no multiple of
+# a block's 4 warps).
 K1_CASES = [(9, 5, 0.0, 300, 8), (9, 5, 0.5, 300, 8), (9, 5, 1.0, 300, 8),
             (9, 30, 0.0, 300, 6), (9, 30, 1.0, 1, 6),
             (9, 31, 0.0, 1, 6), (9, 31, 1.0, 300, 6),
@@ -200,7 +234,10 @@ K1_CASES = [(9, 5, 0.0, 300, 8), (9, 5, 0.5, 300, 8), (9, 5, 1.0, 300, 8),
             (9, 64, 0.0, 1, 4), (9, 64, 1.0, 300, 4),
             (1, 1278, 0.0, 100, 4), (1, 1278, 1.0, 30, 4),
             (128, 78, 0.0, 300, 2), (128, 78, 1.0, 300, 2),
-            (8, 300, 0.0, 300, 4), (8, 300, 1.0, 300, 4)]
+            (8, 300, 0.0, 300, 4), (8, 300, 1.0, 300, 4),
+            (129, 30, 1.0, 300, 1), (129, 32, 0.0, 1, 1),
+            (256, 20, 0.5, 1, 1), (256, 32, 0.0, 300, 1),
+            (128, 79, 0.0, 300, 1)]
 
 
 @pytest.mark.parametrize("n,m,eq_frac,R,sweeps", K1_CASES)

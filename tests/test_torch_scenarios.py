@@ -311,7 +311,7 @@ def test_solve_scenarios_draws_in_scenario_order(monkeypatch):
 
 
 def test_stack_k2_route_runs_one_scenario_at_a_time():
-    """Where K1 does not run (mega=False, or shapes `_mega_fits` refuses),
+    """Where K1 does not run (mega=False, or shapes K1 cannot hold),
     the stacked improve is the K2 route one scenario at a time: equal to
     improve_coord_descent_fused on each form (torch.equal)."""
     from qcqp_tpu_torch.solvers import coord_descent_fused as fused
