@@ -17,11 +17,10 @@ constraints sharded over a mesh of processes, parallel/mesh.py and
 mesh2d.py); and the tooling: replay traces, a profiler hook and a timer
 (diagnostics.py), the JAX package's examples (examples/) and its
 scaling study (benchmarks/scaling.py).  The package imports torch and
-never jax.  Forms land on the first CUDA device unless the caller names
-another
-(device="cpu"), and without a card naming none raises; dtypes are
-explicit (float64 on the CPU, float32 on CUDA by default), since torch
-has no global x64 switch.
+never jax.  Forms land on the current CUDA device unless the caller
+names another (device="cpu"), and without a card naming none raises;
+dtypes are explicit (float64 on the CPU, float32 on CUDA by default),
+since torch has no global x64 switch.
 """
 
 from .settings import (

@@ -57,7 +57,7 @@ def enable_file_log(path: str = "qcqp.log", level=logging.INFO) -> None:
 class QCQP:
     def __init__(self, prob: Problem, seed: int = 0, dtype=None,
                  device=None, check_dcp: bool = True):
-        """device: where the form lives (default: the first CUDA device,
+        """device: where the form lives (default: the current CUDA device,
         core.default_device, as the JAX package defaults to its accelerator
         backend; without a card the caller must pass device="cpu").
         dtype: default float64 on the CPU, float32 on CUDA, as the JAX

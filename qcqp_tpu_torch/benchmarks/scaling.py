@@ -9,16 +9,29 @@ torch.distributed group), each running the same solve_restarts over
 global_mesh(), and reads the collectives from each rank's Mesh.calls and
 Mesh.bytes.  Run:
 
-    python -m qcqp_tpu_torch.benchmarks.scaling               # NCCL ranks
-    python -m qcqp_tpu_torch.benchmarks.scaling --device cpu  # gloo ranks
+    python -m qcqp_tpu_torch.benchmarks.scaling                # NCCL ranks
+    python -m qcqp_tpu_torch.benchmarks.scaling --worlds 1,2,4
+    SCALE_N=40 SCALE_M=20 SCALE_R=64 SCALE_SWEEPS=5 \
+        python -m qcqp_tpu_torch.benchmarks.scaling --device cpu  # gloo
 
 On the CPU the world sizes are 1, 2, 4 and 8 gloo ranks of one thread
 each; on CUDA they go up to the card count, one NCCL rank a card (a
-machine with one card gives world 1 only, and no scaling figure).  The
-problem size comes from SCALE_N, SCALE_M, SCALE_R and SCALE_SWEEPS
-(default 40, 20, 256, 5).  Prints restarts/s and parallel efficiency per
-world size, then the collective inventory of the restart pipeline and of
-the 2-D (restarts x constraints) ADMM.
+machine with one card gives world 1 only, and no scaling figure).
+--worlds names the world sizes instead, and on CUDA raises when the
+machine has fewer cards than the largest.
+
+The form is bench.py's (cd_routes.bench_form: n = SCALE_N, m = SCALE_M,
+seed 0; float32 on a card, float64 on the CPU).  Per world: weak scaling
+at SCALE_R restarts a rank and strong scaling at SCALE_R times the
+largest world in all, SCALE_SWEEPS CD sweeps, each a warm-up solve then
+REPEATS timed solves (the slowest rank's time, median over the repeats);
+the best point's all_gather of n + 3 numbers timed alone and its share of
+a weak solve; and each rank's collectives of one solve against the
+analytic count.  The defaults (100, 50, 10,240, 10) are the one-card CD
+shape; the CPU wants the smaller sizes above.  Prints the cards' names
+and power limits (nvidia-smi), restarts/s and parallel efficiency per
+world size, the collective inventory of each world's restart pipeline,
+then that of the 2-D (restarts x constraints) ADMM.
 """
 
 import argparse
@@ -32,10 +45,13 @@ import time
 
 import numpy as np
 
-N = int(os.environ.get("SCALE_N", 40))
-M = int(os.environ.get("SCALE_M", 20))
-R = int(os.environ.get("SCALE_R", 256))
-SWEEPS = int(os.environ.get("SCALE_SWEEPS", 5))
+from .cd_routes import bench_form
+
+N = int(os.environ.get("SCALE_N", 100))
+M = int(os.environ.get("SCALE_M", 50))
+R = int(os.environ.get("SCALE_R", 10240))
+SWEEPS = int(os.environ.get("SCALE_SWEEPS", 10))
+REPEATS = 3
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -107,46 +123,45 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def _bench_form(spec, device):
-    from qcqp_tpu_torch.core import random_form
-    return random_form(np.random.default_rng(0), n=spec["n"], m=spec["m"],
-                       device=device)
-
-
 def _job_run(spec, device):
-    """A warm-up solve, then one timed solve_restarts over global_mesh()."""
+    """One rank of run(): after a warm-up solve each, REPEATS timed weak
+    and strong solves over global_mesh(), the all_gather of n + 3 numbers
+    timed alone, and the mesh's collectives of one weak solve."""
     import torch
     import torch.distributed as dist
+    from qcqp_tpu_torch.convert import form_from_numpy
     from qcqp_tpu_torch.parallel.launch import global_mesh
     from qcqp_tpu_torch.parallel.restarts import solve_restarts
-    form = _bench_form(spec, device)
+    form = form_from_numpy(*bench_form(spec["n"], spec["m"]), device=device)
     mesh = global_mesh()
 
-    def solve(seed):
+    def timed(fn):
+        _sync(device)
+        dist.barrier()
+        t0 = time.perf_counter()
+        fn()
+        _sync(device)
+        return time.perf_counter() - t0
+
+    def solve(R, seed):
         gen = torch.Generator(device=device).manual_seed(seed)
-        return solve_restarts(form, spec["R"], gen, mesh=mesh,
+        return solve_restarts(form, R, gen, mesh=mesh,
                               num_iters=spec["sweeps"])
-    solve(0)
-    _sync(device)
-    dist.barrier()
-    t0 = time.perf_counter()
-    solve(1)
-    _sync(device)
-    return {"seconds": time.perf_counter() - t0}
-
-
-def _job_collectives(spec, device):
-    """One solve_restarts over global_mesh(): the mesh's collectives."""
-    import torch
-    from qcqp_tpu_torch.parallel.launch import global_mesh
-    from qcqp_tpu_torch.parallel.restarts import solve_restarts
-    form = _bench_form(spec, device)
-    mesh = global_mesh()
-    gen = torch.Generator(device=device).manual_seed(0)
-    solve_restarts(form, spec["R"], gen, mesh=mesh,
-                   num_iters=spec["sweeps"])
-    return {"calls": dict(mesh.calls), "bytes": dict(mesh.bytes),
-            "itemsize": form.P.element_size()}
+    out = {}
+    for kind in ("weak", "strong"):
+        solve(spec[kind], 0)
+        out[kind] = [timed(lambda: solve(spec[kind], 1 + i))
+                     for i in range(spec["repeats"])]
+    cand = torch.zeros(form.n + 3, dtype=form.dtype, device=device)
+    mesh.all_gather(cand, "r")
+    out["all_gather"] = [timed(lambda: mesh.all_gather(cand, "r"))
+                         for _ in range(10)]
+    mesh.calls.clear()
+    mesh.bytes.clear()
+    solve(spec["weak"], 0)
+    out.update(calls=dict(mesh.calls), bytes=dict(mesh.bytes),
+               itemsize=form.P.element_size())
+    return out
 
 
 def _form_2d(m_big, device):
@@ -189,35 +204,46 @@ def _job_collectives_2d(spec, device):
             "itemsize": form.P.element_size(), "coords": mesh.coords}
 
 
-_JOBS = {"run": _job_run, "collectives": _job_collectives,
-         "collectives_2d": _job_collectives_2d}
+_JOBS = {"run": _job_run, "collectives_2d": _job_collectives_2d}
 
 
-def _size():
-    return {"n": N, "m": M, "R": R, "sweeps": SWEEPS}
-
-
-def run(world: int, device: str = "cuda") -> float:
-    """Restarts/s of solve_restarts over `world` ranks (one timed solve
-    after a warm-up, the slowest rank's time)."""
-    size = _size()
+def run(world: int, device: str = "cuda", strong=None) -> dict:
+    """One launch of `world` ranks (_job_run): weak scaling at R restarts
+    a rank and strong scaling at `strong` in all (default R * world), each
+    as its restarts, the median over the repeats of the slowest rank's ms
+    and restarts/s; the all_gather's ms (the same median) and its share of
+    a weak solve; and each rank's result."""
+    size = {"n": N, "m": M, "sweeps": SWEEPS, "repeats": REPEATS,
+            "weak": R * world, "strong": R * world if strong is None
+            else strong}
     res = _launch(world, dict(job="run", **size), device)
-    return size["R"] / max(r["seconds"] for r in res)
+
+    def median_ms(key):
+        return float(np.median(np.max([r[key] for r in res], axis=0))) * 1e3
+    out = {"world": world, "ranks": res}
+    for kind in ("weak", "strong"):
+        ms = median_ms(kind)
+        out[kind] = {"R": size[kind], "ms": ms,
+                     "restarts_s": size[kind] / ms * 1e3}
+    out["all_gather_ms"] = median_ms("all_gather")
+    out["all_gather_share"] = out["all_gather_ms"] / out["weak"]["ms"]
+    return out
 
 
-def collective_report(world: int, device: str = "cuda") -> dict:
+def collective_report(world: int, device: str = "cuda",
+                      ranks=None) -> dict:
     """The collectives of one sharded restart solve, per rank, from its
     Mesh.calls and Mesh.bytes, against the analytic inventory: the
     restart axis is embarrassingly parallel, so a solve's whole traffic is
     the best-point reduction, one all_gather of n + 3 numbers a rank
-    (parallel/restarts.pick_across).  Raises AssertionError otherwise."""
-    size = _size()
-    res = _launch(world, dict(job="collectives", **size), device)
+    (parallel/restarts.pick_across).  ranks: run(world)'s, which it runs
+    when none are given.  Raises AssertionError otherwise."""
+    res = run(world, device)["ranks"] if ranks is None else ranks
     itemsize = res[0]["itemsize"]
     expect = {"calls": {"all_gather": 1},
-              "bytes": {"all_gather": (size["n"] + 3) * itemsize}}
+              "bytes": {"all_gather": (N + 3) * itemsize}}
     print(f"\n== collectives of the {world}-rank restart pipeline "
-          f"(R={size['R']}, n={size['n']}, m={size['m']}, {device}) ==")
+          f"(R={R * world}, n={N}, m={M}, {device}) ==")
     for rank, r in enumerate(res):
         for kind in sorted(r["calls"]):
             print(f"  rank {rank}: {kind:12s} x{r['calls'][kind]}  "
@@ -226,7 +252,7 @@ def collective_report(world: int, device: str = "cuda") -> dict:
     print(f"  TOTAL per solve: {total} bytes sent by {world} ranks "
           f"(restarts communicate only in the best-point reduction)")
     print(f"  constraint-sharded ADMM: one all_reduce of the consensus z an "
-          f"iteration = n*{itemsize} = {size['n'] * itemsize} B/iteration "
+          f"iteration = n*{itemsize} = {N * itemsize} B/iteration "
           f"(parallel/mesh.py)")
     out = {"world": world, "ranks": res, "expected": expect,
            "total_bytes": total}
@@ -276,41 +302,89 @@ def collective_report_2d(m_big: int = 512, nr: int = 2, nc: int = 4,
     return {"ranks": res, "seconds": secs}
 
 
+def study(worlds, device: str = "cuda") -> list:
+    """run() at each world size, strong scaling at R times the largest,
+    with parallel efficiency against the first world (restarts/s a rank
+    over its restarts/s a rank), each printed on one line, then each
+    world's collective inventory (collective_report).  Returns the rows."""
+    rows = []
+    for world in worlds:
+        row = run(world, device, strong=R * worlds[-1])
+        rows.append(row)
+        for kind in ("weak", "strong"):
+            first = rows[0][kind]["restarts_s"] / worlds[0]
+            row[kind]["efficiency"] = row[kind]["restarts_s"] / world / first
+        print(f"{world} ranks: " + "; ".join(
+            f"{kind} R={row[kind]['R']} {row[kind]['ms']} ms "
+            f"{row[kind]['restarts_s']} restarts/s eff "
+            f"{row[kind]['efficiency']}" for kind in ("weak", "strong"))
+            + f"; all_gather {row['all_gather_ms']} ms "
+            f"({row['all_gather_share']} of a weak solve)", flush=True)
+    for row in rows:
+        collective_report(row["world"], device, row["ranks"])
+    return rows
+
+
+def _cards(device):
+    """Each card's index, name and power limit as nvidia-smi prints them
+    (none on the CPU)."""
+    if device == "cpu":
+        return []
+    out = subprocess.run(["nvidia-smi", "--query-gpu=index,name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout
+    return [line.strip() for line in out.splitlines() if line.strip()]
+
+
+def _worlds(arg, device):
+    """The world sizes: --worlds "1,2,4", which on CUDA must not exceed
+    the card count (one NCCL rank a card); by default 1, 2, 4 and 8, on
+    CUDA only those the cards hold."""
+    import torch
+    if device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("scaling: no CUDA device; pass --device cpu "
+                         "to run gloo ranks on the CPU")
+    cards = torch.cuda.device_count() if device == "cuda" else None
+    if arg is None:
+        return [w for w in (1, 2, 4, 8) if cards is None or w <= cards]
+    worlds = sorted({int(w) for w in arg.split(",")})
+    if worlds[0] < 1:
+        raise SystemExit(f"scaling: --worlds {arg}: world sizes are >= 1")
+    if cards is not None and worlds[-1] > cards:
+        raise SystemExit(f"scaling: --worlds {arg} needs {worlds[-1]} "
+                         f"cards (one NCCL rank a card), this machine has "
+                         f"{cards}")
+    return worlds
+
+
 def main(argv=None):
     args = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     args.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                       help="cuda: one NCCL rank a card (the default); "
                            "cpu: gloo ranks on the CPU")
+    args.add_argument("--worlds", metavar="1,2,4",
+                      help="the world sizes; on CUDA it raises when the "
+                           "machine has fewer cards than the largest")
     args.add_argument("--worker", metavar="SPEC",
                       help="(internal) one rank of a measurement")
     args = args.parse_args(argv)
     if args.worker:
         return _worker(args.worker)
     import torch
-    if args.device == "cuda":
-        if not torch.cuda.is_available():
-            raise SystemExit("scaling: no CUDA device; pass --device cpu "
-                             "to run gloo ranks on the CPU")
-        cards = torch.cuda.device_count()
-        worlds = [w for w in (1, 2, 4, 8) if w <= cards]
-    else:
-        worlds = [1, 2, 4, 8]
-    base = run(1, args.device)
-    print(f"1 rank  : {base:9.1f} restarts/s  (eff 100.0%)")
-    for world in worlds[1:]:
-        rate = run(world, args.device)
-        eff = rate / (base * world) * 100
-        print(f"{world} ranks : {rate:9.1f} restarts/s  (eff {eff:5.1f}%)")
+    worlds = _worlds(args.worlds, args.device)
+    for card in _cards(args.device):
+        print(f"card {card}")
+    rows = study(worlds, args.device)
     if len(worlds) == 1:
-        print("one card: no scaling figure (a world of w NCCL ranks needs "
+        print("one world: no scaling figure (a world of w NCCL ranks needs "
               "w cards; --device cpu runs gloo ranks)")
-    collective_report(worlds[-1], args.device)
     if args.device == "cpu" or torch.cuda.device_count() >= 8:
         collective_report_2d(device=args.device)
     else:
         print("\n2-D ADMM inventory: the (2, 4) mesh needs 8 cards, this "
               f"machine has {torch.cuda.device_count()}; --device cpu "
               "gives it on gloo ranks (float64 there, float32 on a card)")
+    return rows
 
 
 if __name__ == "__main__":

@@ -20,8 +20,8 @@ logger = logging.getLogger("qcqp_tpu_torch")
 def form_from_numpy(P, q, r, is_eq, device=None, dtype=None) -> QCQPForm:
     """A QCQPForm from the JAX package's form as numpy arrays, without
     re-symmetrizing (the JAX form already is), so both packages compute on
-    bit-identical data.  device: core.default_device() (the card; without
-    one the caller must name the CPU)."""
+    bit-identical data.  device: core.default_device() (the current CUDA
+    device; without a card the caller must name the CPU)."""
     device = default_device(device)
     dtype = default_dtype(device) if dtype is None else dtype
     return QCQPForm(

@@ -22,16 +22,18 @@ import torch
 
 
 def default_device(device=None) -> torch.device:
-    """The device a form lands on when the caller names none: the first CUDA
-    device, as the JAX package puts a form on its accelerator by default.
-    Without a card this raises instead of falling back to the CPU; a caller
-    that wants the CPU says so (device="cpu")."""
+    """The device a form lands on when the caller names none: the current
+    CUDA device (torch.cuda.current_device(), which launch.initialize sets
+    to the process' own card), as the JAX package puts a form on the
+    process' own accelerator by default.  Without a card this raises
+    instead of falling back to the CPU; a caller that wants the CPU says so
+    (device="cpu")."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "qcqp_tpu_torch: no CUDA device is available; pass "
                 "device=\"cpu\" to run on the CPU")
-        device = "cuda:0"
+        return torch.device("cuda", torch.cuda.current_device())
     return torch.device(device)
 
 

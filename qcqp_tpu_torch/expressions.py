@@ -655,10 +655,11 @@ def canonicalize(prob: Problem, dtype=None, device=None):
 
     The analog of get_qcqp_form (reference: qcqp/utilities.py:318-347):
     instead of a list of sparse QuadraticFunctions it emits one stacked dense
-    tensor batch on `device` (default: core.default_device()).  `dtype` is a
-    numpy dtype (the host arrays are cast to it before symmetrization, as in
-    the JAX package) or a torch dtype of the same precision; by default
-    float64 on the CPU and float32 on CUDA (core.default_dtype).
+    tensor batch on `device` (default: core.default_device(), the current
+    CUDA device).  `dtype` is a numpy dtype (the host arrays are cast to it
+    before symmetrization, as in the JAX package) or a torch dtype of the
+    same precision; by default float64 on the CPU and float32 on CUDA
+    (core.default_dtype).
     """
     device = default_device(device)
     np_dtype = _np_dtype(default_dtype(device) if dtype is None else dtype)

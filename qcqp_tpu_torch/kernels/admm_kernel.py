@@ -53,7 +53,7 @@ import torch.nn.functional as F
 
 from ..core import QCQPForm, better_batch
 from . import _build
-from .onevar_kernel import SMEM_BLOCK_MAX, _check_cuda, _sm_count
+from .onevar_kernel import SMEM_BLOCK_MAX, _check_cuda, _sm_count, tally
 
 logger = logging.getLogger("qcqp_tpu_torch")
 
@@ -267,8 +267,8 @@ def admm_phase_ref(d: ADMMFusedData, xs, phase, num_iters=1000, tol=1e-2,
             live = viol >= tol
             if not bool(live.any()):
                 break
-            admm_phase_ref.lane_iters[1] = (admm_phase_ref.lane_iters[1]
-                                            + live.sum())
+            admm_phase_ref.lane_iters[1] = tally(
+                admm_phase_ref.lane_iters[1], live.sum())
             total = _consensus(d, xh, uh)
             z = torch.where(live[:, None], total / _f32(d.m, total), z)
             v_new = _project_all(d, z, xh, uh, live, nw)
@@ -284,8 +284,8 @@ def admm_phase_ref(d: ADMMFusedData, xs, phase, num_iters=1000, tol=1e-2,
         live = ~done
         if not bool(live.any()):
             break
-        admm_phase_ref.lane_iters[2] = (admm_phase_ref.lane_iters[2]
-                                        + live.sum())
+        admm_phase_ref.lane_iters[2] = tally(
+            admm_phase_ref.lane_iters[2], live.sum())
         rhs = two_rho * _consensus(d, xh, uh) - d.q0
         z = torch.where(live[:, None], _rowvec(rhs, d.W), z)
         v_new = _project_all(d, z, xh, uh, live, nw)
@@ -367,15 +367,17 @@ def _launch(d, xs, phase, num_iters, tol, viol_lim, better_tol, nw,
     uh = torch.empty((max(R, 1), m, n), dtype=torch.float32,
                      device=xs.device)
     lib = _build.library()
-    stream = torch.cuda.current_stream(xs.device).cuda_stream
-    rc = lib.qk_admm_phase(
-        d.Q.data_ptr(), d.lam.data_ptr(), d.qhat.data_ptr(),
-        d.r.data_ptr(), d.eq.data_ptr(), d.lmax.data_ptr(),
-        d.lmin.data_ptr(), d.W.data_ptr(), d.P0.data_ptr(),
-        d.q0.data_ptr(), xs.data_ptr(), out.data_ptr(), uh.data_ptr(), n, m,
-        R, int(phase), int(num_iters), float(tol), float(viol_lim),
-        float(better_tol), float(d.rho32), float(d.r0), int(d.need_dbl),
-        int(nw), int(warps), int(chunk_rows), stream)
+    with torch.cuda.device(xs.device):
+        stream = torch.cuda.current_stream(xs.device).cuda_stream
+        rc = lib.qk_admm_phase(
+            d.Q.data_ptr(), d.lam.data_ptr(), d.qhat.data_ptr(),
+            d.r.data_ptr(), d.eq.data_ptr(), d.lmax.data_ptr(),
+            d.lmin.data_ptr(), d.W.data_ptr(), d.P0.data_ptr(),
+            d.q0.data_ptr(), xs.data_ptr(), out.data_ptr(), uh.data_ptr(),
+            n, m, R, int(phase), int(num_iters), float(tol),
+            float(viol_lim), float(better_tol), float(d.rho32),
+            float(d.r0), int(d.need_dbl), int(nw), int(warps),
+            int(chunk_rows), stream)
     _build.check(rc, "qk_admm_phase")
     return out
 

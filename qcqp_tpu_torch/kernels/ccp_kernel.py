@@ -314,18 +314,18 @@ def _launch(d, xs, tau, mu, tau_max, max_iter, inner_iters, rho, stall_tol,
     trips = torch.zeros((Rp // L_TILE, 2), dtype=torch.int32,
                         device=xs.device)
     lib = _build.library()
-    stream = torch.cuda.current_stream(xs.device).cuda_stream
-    rc = lib.qk_ccp_improve(
-        d.V.data_ptr(), d.VT.data_ptr(), d.lam0.data_ptr(),
-        d.lam1.data_ptr(), d.qhat.data_ptr(), d.q.data_ptr(),
-        d.shift.data_ptr(), d.r.data_ptr(), d.eq.data_ptr(),
-        x0.data_ptr(), out.data_ptr(), banks[0].data_ptr(),
-        banks[1].data_ptr(), xkh.data_ptr(), qm.data_ptr(), rm.data_ptr(),
-        trips.data_ptr(), n, m, E, Rp, int(max_iter), int(inner_iters),
-        int(bool(warm_inner)),
-        int(n_newton), k["tau0"], k["mu"], k["tau_max"], k["tau_sat"],
-        k["rho0"], k["stall_tol"], k["inner_tol"], k["viol_exit_tol"],
-        stream)
+    with torch.cuda.device(xs.device):
+        stream = torch.cuda.current_stream(xs.device).cuda_stream
+        rc = lib.qk_ccp_improve(
+            d.V.data_ptr(), d.VT.data_ptr(), d.lam0.data_ptr(),
+            d.lam1.data_ptr(), d.qhat.data_ptr(), d.q.data_ptr(),
+            d.shift.data_ptr(), d.r.data_ptr(), d.eq.data_ptr(),
+            x0.data_ptr(), out.data_ptr(), banks[0].data_ptr(),
+            banks[1].data_ptr(), xkh.data_ptr(), qm.data_ptr(),
+            rm.data_ptr(), trips.data_ptr(), n, m, E, Rp, int(max_iter),
+            int(inner_iters), int(bool(warm_inner)), int(n_newton),
+            k["tau0"], k["mu"], k["tau_max"], k["tau_sat"], k["rho0"],
+            k["stall_tol"], k["inner_tol"], k["viol_exit_tol"], stream)
     _build.check(rc, "qk_ccp_improve")
     ccp_improve.trips = trips
     return out[:R]

@@ -370,13 +370,15 @@ def _launch(P, q, r, eq_idx, xs, num_iters, viol_tol, tol, n_bisect,
     Pt, qt = lane_layout(P, q)
     x = xs.clone()                                   # (S, R, n), in/out
     lib = _build.library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.qk_cd_sweeps(Pt.data_ptr(), qt.data_ptr(), r.data_ptr(),
-                          mask.data_ptr(), idx.data_ptr(), counts.data_ptr(),
-                          e_max, x.data_ptr(), n, m, S, R, int(num_iters),
-                          float(tol), float(viol_tol), int(n_bisect),
-                          int(bool(phase1)), int(bool(phase2)), warps,
-                          floats, stream)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.qk_cd_sweeps(Pt.data_ptr(), qt.data_ptr(), r.data_ptr(),
+                              mask.data_ptr(), idx.data_ptr(),
+                              counts.data_ptr(), e_max, x.data_ptr(), n, m,
+                              S, R, int(num_iters), float(tol),
+                              float(viol_tol), int(n_bisect),
+                              int(bool(phase1)), int(bool(phase2)), warps,
+                              floats, stream)
     _build.check(rc, "qk_cd_sweeps")
     return x[0] if single else x
 

@@ -326,12 +326,13 @@ def _launch(name, Af, n0, rounds):
                torch.empty((B, 2, n0, _ld(n0)), dtype=torch.float32,
                            device=Af.device))
     lib = _build.library()
-    stream = torch.cuda.current_stream(Af.device).cuda_stream
-    rc = lib.qk_eigh_jacobi(Af.data_ptr(), lam.data_ptr(), V.data_ptr(),
-                            None if scratch is None else scratch.data_ptr(),
-                            sched.data_ptr(), perm.data_ptr(), B, n0,
-                            sched.shape[0], maxp, mats, warps, smem,
-                            stream)
+    with torch.cuda.device(Af.device):
+        stream = torch.cuda.current_stream(Af.device).cuda_stream
+        rc = lib.qk_eigh_jacobi(
+            Af.data_ptr(), lam.data_ptr(), V.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            sched.data_ptr(), perm.data_ptr(), B, n0, sched.shape[0], maxp,
+            mats, warps, smem, stream)
     _build.check(rc, "qk_eigh_jacobi")
     return lam, V
 

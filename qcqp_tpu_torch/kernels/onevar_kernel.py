@@ -152,6 +152,15 @@ def feasible_point_rows_split(p, q, r, act, p2, q2, r2, act2, xk, s, tol):
     return feasible_point_from_canon(blocks, xk)
 
 
+def tally(total, count):
+    """total + count for the plain versions' work counters: count is a
+    device tensor, so the sum stays on the device (no host read a step);
+    a total left on another card by an earlier run follows count's."""
+    if isinstance(total, torch.Tensor) and total.device != count.device:
+        total = total.to(count.device)
+    return total + count
+
+
 def bisect_accept(feasible_point, xk, viol, tol, viol_tol, n_bisect,
                   viol_of, rel=REL_SLACK_TOL, warm=None):
     """_bisect_accept for a batch of lanes.  Returns (v, (wlo, whi)): v is
@@ -193,7 +202,7 @@ def bisect_accept(feasible_point, xk, viol, tol, viol_tol, n_bisect,
         es = torch.where(need_esc, es_cold, es)
         do = (es - ss) > gap_tgt(ss)
         sm = 0.501 * ss + 0.499 * es
-        bisect_accept.probes = bisect_accept.probes + do.sum()
+        bisect_accept.probes = tally(bisect_accept.probes, do.sum())
         xi, exists = feasible_point(sm)
         take = do & exists
         g = viol_of(xi)
@@ -274,10 +283,16 @@ def phase1_coordinate_update_ref(p, q, r, is_eq, active, xk, viol,
 
 
 def _check_cuda(name, tensors, shapes):
+    """Float32 CUDA tensors of the given shapes, contiguous, all on one
+    card: the kernel launches on that card, and a tensor on another is
+    refused, not copied over."""
     for t, shape in zip(tensors, shapes):
         if not t.is_cuda or t.dtype != torch.float32:
             raise TypeError(f"{name}: the CUDA kernel takes float32 CUDA "
                             f"tensors, got {t.dtype} on {t.device}")
+        if t.device != tensors[0].device:
+            raise ValueError(f"{name}: tensors on {tensors[0].device} and "
+                             f"{t.device}; the kernel takes one card's")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: expected shape {shape}, got "
                              f"{tuple(t.shape)}")
@@ -368,12 +383,13 @@ def phase1_coordinate_update(p, q, r, is_eq, active, xk, viol,
     rows = (torch.empty((R, warp_floats), dtype=torch.float32, device=dev)
             if gmem else None)
     lib = _build.library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.qk_phase1_update(
-        _ptr(p), _ptr(q), _ptr(r), _ptr(eq), _ptr(act), _ptr(idx), e,
-        _ptr(xk), _ptr(viol), _ptr(v), _ptr(rows), m, R, float(tol),
-        float(viol_tol), int(n_bisect), int(split), warps, warp_floats,
-        stream)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.qk_phase1_update(
+            _ptr(p), _ptr(q), _ptr(r), _ptr(eq), _ptr(act), _ptr(idx), e,
+            _ptr(xk), _ptr(viol), _ptr(v), _ptr(rows), m, R, float(tol),
+            float(viol_tol), int(n_bisect), int(split), warps, warp_floats,
+            stream)
     _build.check(rc, "qk_phase1_update")
     phase1_coordinate_update.launches += 1
     return v

@@ -11,12 +11,15 @@ solves its block of the restarts and all of them return the same best
 point (parallel/restarts.py).
 
 The backend follows the device unless the caller names it: NCCL for CUDA,
-gloo for the CPU.  NCCL cannot run two ranks on one card; `initialize`
-checks that no two NCCL ranks share a device before it joins the group
-and raises if they do (gloo can: each rank computes on the card and the
-collectives go through host memory, parallel/mesh.py).  A process-group
-timeout bounds every collective, so a rank that dies cannot hang the
-others for ever.
+gloo for the CPU.  An NCCL group binds its communicators to the rank's
+card (`device_id`), which is also the process' current CUDA device, so
+that a form built without device= lands on it (core.default_device).
+NCCL cannot run two ranks on one card; `initialize` checks that no two
+NCCL ranks share a device before it joins the group and raises if they
+do, without falling back to gloo (gloo can: each rank computes on the
+card and the collectives go through host memory, parallel/mesh.py).  A
+process-group timeout bounds every collective, so a rank that dies
+cannot hang the others for ever.
 
 Typical use, one command per process (the JAX package runs one per host):
 
@@ -44,6 +47,9 @@ import torch.distributed as dist
 
 from .mesh import Mesh
 from .restarts import make_mesh, solve_restarts
+
+# the card this process' NCCL communicators are bound to (initialize)
+_bound: Optional[torch.device] = None
 
 
 def initialize(coordinator_address: Optional[str] = None,
@@ -99,11 +105,22 @@ def initialize(coordinator_address: Optional[str] = None,
              and env.get("TORCHELASTIC_USE_AGENT_STORE") != "True")
     store = dist.TCPStore(host, int(port), num_processes, is_master=serve,
                           timeout=wait)
+    bind = {}
     if backend == "nccl":
         _one_rank_per_device(store, device, num_processes, process_id)
+        # the communicators bind to this rank's card, not the current one
+        bind["device_id"] = device
     dist.init_process_group(backend, store=store, world_size=num_processes,
-                            rank=process_id, timeout=wait)
+                            rank=process_id, timeout=wait, **bind)
+    global _bound
+    _bound = bind.get("device_id")
     return device
+
+
+def bound_device() -> Optional[torch.device]:
+    """The card this process' NCCL communicators are bound to, or None
+    (no NCCL group joined through initialize)."""
+    return _bound
 
 
 def _device_id(device: torch.device) -> str:
@@ -165,5 +182,7 @@ def solve_restarts_distributed(form, num_restarts: int, generator=None,
 
 def shutdown() -> None:
     """Leave the process group."""
+    global _bound
+    _bound = None
     if is_initialized():
         dist.destroy_process_group()

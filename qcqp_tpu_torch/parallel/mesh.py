@@ -16,7 +16,8 @@ HLO: benchmarks/scaling.py).
 
 Under gloo the payload of a collective on a CUDA tensor goes through host
 memory: gloo reduces and gathers host tensors (it has no all_gather of
-CUDA tensors).  NCCL takes the CUDA tensors as they are.
+CUDA tensors).  NCCL takes the CUDA tensors as they are, on the rank's
+own card (`_staged` refuses any other).
 
 The second parallel dimension the math exposes (SURVEY.md section 2c):
 the m per-constraint ADMM projections are independent, so constraints
@@ -170,9 +171,17 @@ def _global_rank(group, k):
 def _staged(t: torch.Tensor, group):
     """(buffer, back): the tensor a collective of `group` works on, and the
     map of its result back to t's device.  Under gloo a CUDA tensor goes
-    through host memory."""
-    if t.is_cuda and dist.get_backend(group) == "gloo":
+    through host memory; NCCL takes it as it is, and it must lie on the
+    card launch.initialize bound the rank's communicators to: anything
+    else raises, nothing is copied."""
+    from .launch import bound_device
+    backend = dist.get_backend(group)
+    if t.is_cuda and backend == "gloo":
         return t.cpu(), lambda b: b.to(t.device)
+    card = bound_device()
+    if backend == "nccl" and card is not None and t.device != card:
+        raise ValueError(f"an NCCL collective of a tensor on {t.device}; "
+                         f"this rank's card is {card}")
     return t, lambda b: b
 
 

@@ -82,9 +82,9 @@ def forms_from_bank(path: str, start: int = 0, batch: Optional[int] = None,
                     dtype=None, device=None) -> QCQPForm:
     """Load a stacked scenario batch, instances [start, start + batch), from
     a native problem bank (either package's; native.bank_load reads it on
-    the host).  device: core.default_device() (the card; without one the
-    caller must name the CPU); dtype: float64 on the CPU and float32 on
-    CUDA unless given."""
+    the host).  device: core.default_device() (the current CUDA device;
+    without a card the caller must name the CPU); dtype: float64 on the
+    CPU and float32 on CUDA unless given."""
     device = default_device(device)
     count, _, _ = native.bank_info(path)
     if batch is None:

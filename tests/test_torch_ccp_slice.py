@@ -170,12 +170,13 @@ def test_example_chain_cd_then_dccp():
 @pytest.mark.parametrize("cuda", [False, True])
 def test_forms_land_on_the_default_device(monkeypatch, cuda):
     """With no device named, make_form, random_form, form_from_numpy,
-    canonicalize and QCQP put the form on the first CUDA device, and
-    without a card they raise instead of falling back to the CPU; a device
-    the caller names is honoured, and the dtype follows the device.  With
-    CUDA mocked as present only the choice is checked (no tensor is made
-    on a card)."""
+    canonicalize and QCQP put the form on the current CUDA device (cuda:0
+    on one card), and without a card they raise instead of falling back to
+    the CPU; a device the caller names is honoured, and the dtype follows
+    the device.  With CUDA mocked as present (its current device 0) only
+    the choice is checked (no tensor is made on a card)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: cuda)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     assert tcore.default_device("cpu") == torch.device("cpu")
     if cuda:
         assert tcore.default_device() == torch.device("cuda:0")

@@ -1009,4 +1009,4 @@ def test_scaling_script_on_one_card(cuda, monkeypatch):
         monkeypatch.setattr(scaling, name, value)
     out = scaling.collective_report(1, device="cuda")
     assert out["ranks"][0]["bytes"] == {"all_gather": (8 + 3) * 4}
-    assert scaling.run(1, device="cuda") > 0
+    assert scaling.run(1, device="cuda")["weak"]["restarts_s"] > 0

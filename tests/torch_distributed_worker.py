@@ -6,9 +6,11 @@ Run as:  python torch_distributed_worker.py <coordinator> <nproc> <pid>
              <job.pkl> <outdir>
 
 Each process joins a gloo process group on the CPU through the port's
-launch.initialize (or a CUDA one, as the job says), runs the job's cases
-in order (every rank runs every case: each mesh's groups are made by all
-ranks), and writes what each case returned to <outdir>/<pid>.pkl.  A
+launch.initialize (or a CUDA one, as the job says: a job device of
+"cuda" gives rank r the card cuda:r, as NCCL needs one rank a card; any
+other device is every rank's), runs the job's cases in order (every
+rank runs every case: each mesh's groups are made by all ranks), and
+writes what each case returned to <outdir>/<pid>.pkl.  A
 case that raises makes the process exit non-zero, with the traceback on
 stderr, unless the case expects that error.
 
@@ -24,6 +26,7 @@ import pickle
 import socket
 import subprocess
 import sys
+import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.dirname(HERE))
@@ -37,19 +40,31 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def start_workers(nproc, job, tmpdir, torchrun=False):
-    """Write the job and start nproc workers (or one torchrun that starts
-    them); returns the processes."""
-    os.makedirs(tmpdir, exist_ok=True)
-    job_path = os.path.join(tmpdir, "job.pkl")
-    with open(job_path, "wb") as f:
+def rank_device(device, rank):
+    """Rank `rank`'s device: "cuda" is cuda:<rank>, one card a rank; any
+    other device is every rank's."""
+    return f"cuda:{rank}" if device == "cuda" else device
+
+
+def _write_job(job, path):
+    with open(path, "wb") as f:
         pickle.dump(job, f)
+    return path
+
+
+def start_workers(nproc, job, tmpdir, torchrun=False):
+    """Write the job (one a rank, its device resolved by rank_device; one
+    for all under torchrun, which each rank resolves by its RANK) and
+    start nproc workers (or one torchrun that starts them); returns the
+    processes."""
+    os.makedirs(tmpdir, exist_ok=True)
     env = dict(os.environ)
     env.pop("XLA_FLAGS", None)
     env["OMP_NUM_THREADS"] = "1"
     port = free_port()
     me = os.path.abspath(__file__)
     if torchrun:
+        job_path = _write_job(job, os.path.join(tmpdir, "job.pkl"))
         cmd = [sys.executable, "-m", "torch.distributed.run",
                "--nnodes", "1", "--nproc-per-node", str(nproc),
                "--master-addr", "127.0.0.1", "--master-port", str(port),
@@ -58,8 +73,10 @@ def start_workers(nproc, job, tmpdir, torchrun=False):
                                  stderr=subprocess.PIPE, text=True)]
     return [subprocess.Popen(
         [sys.executable, me, f"127.0.0.1:{port}", str(nproc), str(pid),
-         job_path, tmpdir], env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for pid in range(nproc)]
+         _write_job(dict(job, device=rank_device(job["device"], pid)),
+                    os.path.join(tmpdir, f"job{pid}.pkl")), tmpdir],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for pid in range(nproc)]
 
 
 def finish(procs, timeout):
@@ -85,8 +102,9 @@ def finish(procs, timeout):
 
 def run_workers(nproc, cases, tmpdir, timeout=240.0, device="cpu",
                 backend=None, pg_timeout=120.0, torchrun=False):
-    """Run `cases` on nproc workers; every worker must exit 0.  Returns
-    one dict a rank: case name -> what the case returned, plus "_info"."""
+    """Run `cases` on nproc workers; every worker must exit 0.  device:
+    every rank's, or "cuda" for cuda:<rank> (rank_device).  Returns one
+    dict a rank: case name -> what the case returned, plus "_info"."""
     job = {"device": device, "backend": backend, "timeout": pg_timeout,
            "cases": cases}
     results = finish(start_workers(nproc, job, tmpdir, torchrun), timeout)
@@ -101,11 +119,33 @@ def run_workers(nproc, cases, tmpdir, timeout=240.0, device="cpu",
 
 # ------------------------------------------------------------------ worker
 
-def _form(arrays, dtype, device):
+def _default(device):
+    """What a rank passes as device= to build on its own device: nothing on
+    a card (core.default_device, the current card, which initialize set
+    to the rank's), the CPU by name (the port has no CPU default)."""
+    return None if device.type == "cuda" else device
+
+
+def _form(case, device, dtype="float64"):
+    """The case's form on `device`; with "default_device", built as
+    _default says."""
     import torch
     from qcqp_tpu_torch.convert import form_from_numpy
-    return form_from_numpy(*arrays, device=device,
-                           dtype=getattr(torch, dtype))
+    if case.get("default_device"):
+        device = _default(device)
+    return form_from_numpy(*case["arrays"], device=device,
+                           dtype=getattr(torch, case.get("dtype", dtype)))
+
+
+def _watch_payloads(mesh):
+    """The devices of the tensors this mesh's collectives are handed."""
+    seen, real = set(), mesh._count
+
+    def count(kind, t):
+        seen.add(str(t.device))
+        real(kind, t)
+    mesh._count = count
+    return seen
 
 
 def _mesh(case):
@@ -188,12 +228,14 @@ def run_case(case, device):
     out = {"in_mesh": True}
     if mesh is not None:
         out["coords"] = mesh.coords
+        payloads = _watch_payloads(mesh)
     gen = torch.Generator(device=device).manual_seed(case.get("seed", 0))
     wrappers = _kernel_wrappers()
     for w in wrappers.values():
         w.launches = 0
     if kind in ("restarts", "distributed"):
-        form = _form(case["arrays"], case.get("dtype", "float64"), device)
+        form = _form(case, device)
+        out["form_device"] = str(form.device)
         spies = _Spies(case.get("fused_cpu", False))
         undo = _given_starts(case["starts"]) if "starts" in case else None
         try:
@@ -213,20 +255,21 @@ def run_case(case, device):
                    shard=spies.chain[0] if spies.chain else None)
     elif kind == "admm_phase1":
         from qcqp_tpu_torch.parallel import admm_phase1_sharded
-        form = _form(case["arrays"], "float64", device)
+        form = _form(case, device)
         x0 = torch.from_numpy(case["x0"]).to(form.P)
         out["z"] = _np(admm_phase1_sharded(form, x0, mesh, axis="c", **kw))
     elif kind == "admm2d":
-        form = _form(case["arrays"], "float64", device)
+        form = _form(case, device)
+        out["form_device"] = str(form.device)
         xs = torch.from_numpy(case["xs"]).to(form.P)
         out["xs"] = _np(mesh2d.improve_admm_2d(form, xs, mesh, **kw))
         out["calls"] = dict(mesh.calls)
     elif kind == "solve2d":
-        form = _form(case["arrays"], "float64", device)
+        form = _form(case, device)
         x, f, v = mesh2d.solve_restarts_2d(form, case["R"], gen, mesh, **kw)
         out.update(x=_np(x), f=_np(f), v=_np(v))
     elif kind in ("scenarios", "scenarios_sharded"):
-        stacked = _form(case["arrays"], case.get("dtype", "float64"), device)
+        stacked = _form(case, device)
         S = stacked.P.shape[0]
         if kind == "scenarios":
             res = scenarios.solve_scenarios(stacked, case["R"], gen,
@@ -245,11 +288,38 @@ def run_case(case, device):
             res = scenarios.solve_scenarios_sharded(stacked, case["R"], gen,
                                                     mesh, **kw)
         out.update(zip(("x", "f", "v"), (_np(t) for t in res)))
+    elif kind == "scenarios_bank":
+        # this rank's block of the bank, loaded onto the current card
+        S = case["S"]
+        start, batch = scenarios.scenario_block(S, mesh)
+        local = scenarios.forms_from_bank(case["bank"], start, batch,
+                                          dtype=torch.float32,
+                                          device=_default(device))
+        out["form_device"] = str(local.device)
+        block, real = [], scenarios._improve_from_starts
+
+        def improve(*a, **kw):
+            block.append(real(*a, **kw))
+            return block[-1]
+        spies = _Spies(case.get("fused_cpu", False))
+        scenarios._improve_from_starts = improve
+        try:
+            res = scenarios.solve_scenarios_sharded(
+                local, case["R"], gen, mesh, num_scenarios=S, **kw)
+        finally:
+            scenarios._improve_from_starts = real
+            spies.close()
+        out.update(zip(("x", "f", "v"), (_np(t) for t in res)))
+        out.update(scenarios=[start, start + batch], block=_np(block[0]),
+                   calls=spies.calls)
     elif kind == "make_mesh_2d":
         mesh2d.make_mesh_2d(*case["shape"])
     else:
         raise ValueError(f"unknown case kind {kind}")
     out["launches"] = {k: w.launches for k, w in wrappers.items()}
+    if mesh is not None:
+        out.update(mesh_calls=dict(mesh.calls), mesh_bytes=dict(mesh.bytes),
+                   payload_devices=sorted(payloads))
     return out
 
 
@@ -270,7 +340,9 @@ def main():
     with open(job_path, "rb") as f:
         job = pickle.load(f)
     if coordinator == "-":              # started by torchrun
-        device = launch.initialize(device=job["device"],
+        device = launch.initialize(device=rank_device(
+                                       job["device"],
+                                       int(os.environ["RANK"])),
                                    backend=job["backend"],
                                    timeout=job["timeout"])
     else:
@@ -289,7 +361,13 @@ def main():
                 raise RuntimeError(f"rank {pid} fails on purpose")
             expect = case.get("raises")
             try:
+                t0 = time.perf_counter()
                 results[case["name"]] = run_case(case, device)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                # the case's host time, its first run (set-ups and the
+                # groups' first collectives included)
+                results[case["name"]]["seconds"] = time.perf_counter() - t0
             except Exception as e:          # noqa: BLE001
                 if expect is None or expect not in type(e).__name__:
                     raise
