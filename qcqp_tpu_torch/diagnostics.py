@@ -9,7 +9,9 @@ tensors on the form's device and stacks them after the loop: the whole
 history comes back in one transfer, with no host read a step beyond what
 the stepped solver itself does.  Convergence curves for dashboards,
 regression tests and rho/tau tuning; plus a context manager over
-torch.profiler for device traces, and a timer that waits for the card.
+torch.profiler for device traces, the named spans the restart driver and
+the kernels' launch wrappers emit into those traces (`span`), and a timer
+that waits for the card.
 
 Every trace runs on the form's device and in its dtype; a start given as
 numpy goes there first.
@@ -157,6 +159,25 @@ def torch_profile(logdir: str):
             if torch.cuda.is_initialized():
                 torch.cuda.synchronize()
     prof.export_chrome_trace(prof.trace_path)
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named span of the program in torch.profiler's timeline: a
+    `user_annotation` event beside the device's kernels and copies, so a
+    trace (`torch_profile`, or any torch.profiler.profile the caller
+    runs) shows which step of the program left the card idle.  Use it as
+    `with span("qcqp.best"): ...`.  The names the program emits are listed
+    in README.md (the port's section).
+
+    Where no profiler records, it returns one shared no-op context manager
+    and costs a flag read; it allocates nothing and calls no
+    record_function op.  There is no other switch."""
+    if not torch._C._autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 @contextlib.contextmanager

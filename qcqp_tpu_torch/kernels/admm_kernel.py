@@ -52,6 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core import QCQPForm, better_batch
+from ..diagnostics import span
 from . import _build
 from .onevar_kernel import SMEM_BLOCK_MAX, _check_cuda, _sm_count, tally
 
@@ -387,11 +388,14 @@ def admm_phase(d: ADMMFusedData, xs, phase, num_iters=1000, tol=1e-2,
     """One whole ADMM phase of the restart batch xs (R, n) float32.
 
     CPU tensors run the plain version; CUDA tensors launch K3 (float32,
-    contiguous; counted in `admm_phase.launches`)."""
+    contiguous; counted in `admm_phase.launches`), the host's part of each
+    launch in the span `qcqp.k3.host` (diagnostics.span)."""
     if not xs.is_cuda:
         return admm_phase_ref(d, xs, phase, num_iters, tol, viol_lim,
                               better_tol, nw)
-    out = _launch(d, xs, phase, num_iters, tol, viol_lim, better_tol, nw)
+    with span("qcqp.k3.host"):
+        out = _launch(d, xs, phase, num_iters, tol, viol_lim, better_tol,
+                      nw)
     admm_phase.launches += 1
     return out
 

@@ -55,6 +55,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core import QCQPForm, better_batch
+from ..diagnostics import span
 from . import _build
 from .admm_kernel import _f32, _nmax, _nmin, _rowvec, _tree_sum, _viol_chain
 from .onevar_kernel import _check_cuda
@@ -339,12 +340,14 @@ def ccp_improve(d: CCPFusedData, xs, tau=0.005, mu=1.4, tau_max=1e8,
 
     CPU tensors run the plain version; CUDA tensors launch K4 (float32,
     contiguous; counted in `ccp_improve.launches`, with the last launch's
-    per-tile trip counts in `ccp_improve.trips`)."""
+    per-tile trip counts in `ccp_improve.trips`), the host's part of the
+    launch in the span `qcqp.k4.host` (diagnostics.span)."""
     args = (d, xs, tau, mu, tau_max, max_iter, inner_iters, rho, stall_tol,
             inner_tol, viol_exit_tol, warm_inner, n_newton)
     if not xs.is_cuda:
         return ccp_improve_ref(*args)
-    out = _launch(*args)
+    with span("qcqp.k4.host"):
+        out = _launch(*args)
     ccp_improve.launches += 1
     return out
 

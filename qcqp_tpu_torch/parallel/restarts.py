@@ -34,6 +34,12 @@ restart index on a tie, as the one-process best_point does.  An SDR or
 SPECTRAL relaxation is solved (or read from `handler`) on the mesh's
 first rank only and broadcast, so that every rank samples from the same
 bits.
+
+Each step emits a named span into a running torch.profiler trace
+(diagnostics.span; nothing where no profiler records): the whole call
+`qcqp.solve_restarts`, the fused set-ups `qcqp.setup`, the relaxation and
+the draw `qcqp.suggest`, each improve stage `qcqp.improve.<method>`, the
+best point `qcqp.best` and the cross-rank pick `qcqp.gather`.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ import torch.distributed as dist
 from .. import settings as s
 from ..core import (QCQPForm, eval_objective_batch, max_violation_batch,
                     violation_bucket)
+from ..diagnostics import span
 from ..solvers.coord_descent import improve_coord_descent_batch
 from ..solvers.coord_descent_fused import improve_coord_descent_fused
 from ..solvers import ccp as ccp_solver
@@ -77,6 +84,11 @@ def _fused_default(form: QCQPForm) -> bool:
 def best_point(form: QCQPForm, xs: torch.Tensor, tol: float = 1e-4):
     """Lexicographic (viol bucket, objective) argmin over the restarts.
     Returns (x_best (n,), f_best, viol_best) as tensors."""
+    with span("qcqp.best"):
+        return _argmin(form, xs, tol)
+
+
+def _argmin(form: QCQPForm, xs: torch.Tensor, tol: float):
     viols = max_violation_batch(form, xs)
     buckets = violation_bucket(viols, tol)
     fs = eval_objective_batch(form, xs)
@@ -89,8 +101,9 @@ def best_point(form: QCQPForm, xs: torch.Tensor, tol: float = 1e-4):
 def candidate(form: QCQPForm, xs: torch.Tensor, tol: float = 1e-4):
     """best_point of xs (R, n), R >= 1, as one row (bucket, f, v, x) of
     n + 3 numbers: what a rank sends for the cross-rank best point."""
-    x, f, v = best_point(form, xs, tol)
-    return torch.cat([torch.stack([violation_bucket(v, tol), f, v]), x])
+    with span("qcqp.best"):
+        x, f, v = _argmin(form, xs, tol)
+        return torch.cat([torch.stack([violation_bucket(v, tol), f, v]), x])
 
 
 def pick_across(cand: torch.Tensor, mesh: Mesh, axis: str, total: int):
@@ -101,13 +114,14 @@ def pick_across(cand: torch.Tensor, mesh: Mesh, axis: str, total: int):
     bucket, the least f and the first block, which is best_point's argmin
     over the whole batch, since its winner is its own block's winner.
     Returns (x, f, v), the same on every rank of the axis."""
-    # blocks total, total + 1, ... are the empty ones
-    cands = mesh.all_gather(cand, axis)[:total]
-    b, f = cands[..., 0], cands[..., 1]
-    bmin = b.min(dim=0, keepdim=True).values
-    j = torch.argmin(torch.where(b == bmin, f, float("inf")), dim=0)
-    win = torch.take_along_dim(cands, j[None, ..., None], dim=0)[0]
-    return win[..., 3:], win[..., 1], win[..., 2]
+    with span("qcqp.gather"):
+        # blocks total, total + 1, ... are the empty ones
+        cands = mesh.all_gather(cand, axis)[:total]
+        b, f = cands[..., 0], cands[..., 1]
+        bmin = b.min(dim=0, keepdim=True).values
+        j = torch.argmin(torch.where(b == bmin, f, float("inf")), dim=0)
+        win = torch.take_along_dim(cands, j[None, ..., None], dim=0)[0]
+        return win[..., 3:], win[..., 1], win[..., 2]
 
 
 def sdr_sampler(X: torch.Tensor, eps: float = 1e-8):
@@ -158,58 +172,66 @@ def improve_chain(form: QCQPForm, xs: torch.Tensor,
     if isinstance(methods, str):
         methods = [methods]
     for method in methods:
-        if method == s.COORD_DESCENT:
-            common = dict(num_iters=kwargs.get("num_iters", 1000),
-                          viol_tol=kwargs.get("viol_tol", 1e-2),
-                          tol=kwargs.get("tol", 1e-4),
-                          phase1=kwargs.get("phase1", True))
-            if kwargs.get("use_fused", False):
-                xs = improve_coord_descent_fused(
-                    form, xs, eq_idx=kwargs.get("eq_idx", None),
-                    mega=kwargs.get("mega", None), **common)
-            else:
-                xs = improve_coord_descent_batch(form, xs, **common)
-        elif method == s.ADMM:
-            common = dict(num_iters=kwargs.get("num_iters", 1000),
-                          viol_lim=kwargs.get("viol_lim", 1e4),
-                          tol=kwargs.get("admm_tol", kwargs.get("tol", 1e-2)),
-                          phase1=kwargs.get("phase1", True))
-            if kwargs.get("use_fused", False):
-                # K3 (kernels/admm_kernel.py); the one-time setup comes in
-                # admm_data when solve_restarts built it
-                xs = admm_kernel.improve_admm_fused(
-                    form, xs, rho=kwargs.get("rho", None),
-                    better_tol=kwargs.get("better_tol", 1e-4),
-                    data=kwargs.get("admm_data", None),
-                    **common).to(xs.dtype)
-            else:
-                xs = improve_admm_batch(form, xs, kwargs.get("rho", None),
-                                        **common)
-        elif method == s.DCCP:
-            tau = kwargs.get("tau", 0.005)
-            if (kwargs.get("use_fused", False)
-                    and not kwargs.get("use_eigen_split", False)):
-                # K4 (kernels/ccp_kernel.py); the one-time setup comes in
-                # ccp_data when solve_restarts built it
-                ccp_kw = {k: v for k, v in kwargs.items()
-                          if k in ("max_iter", "mu", "tau_max",
-                                   "inner_iters", "warm_inner")}
-                xs = ccp_kernel.improve_ccp_fused(
-                    form, xs, tau=tau, data=kwargs.get("ccp_data", None),
-                    **ccp_kw).to(xs.dtype)
-            else:
-                # the same filtered forwarding as QCQP._improve_one
-                ccp_kw = {k: v for k, v in kwargs.items()
-                          if k in ("max_iter", "mu", "tau_max",
-                                   "inner_iters", "use_eigen_split")}
-                xs = ccp_solver.improve_ccp_batch(form, xs, tau=tau,
-                                                  **ccp_kw)
-        elif method == s.IPOPT:
-            xs = improve_nlp(form, xs, **{
-                k: v for k, v in kwargs.items()
-                if k in ("num_outer", "num_inner", "mu0")})
+        with span(f"qcqp.improve.{method}"):
+            xs = _improve_stage(form, xs, method, kwargs)
+    return xs
+
+
+def _improve_stage(form: QCQPForm, xs: torch.Tensor, method: str,
+                   kwargs: dict) -> torch.Tensor:
+    """One stage of improve_chain."""
+    if method == s.COORD_DESCENT:
+        common = dict(num_iters=kwargs.get("num_iters", 1000),
+                      viol_tol=kwargs.get("viol_tol", 1e-2),
+                      tol=kwargs.get("tol", 1e-4),
+                      phase1=kwargs.get("phase1", True))
+        if kwargs.get("use_fused", False):
+            xs = improve_coord_descent_fused(
+                form, xs, eq_idx=kwargs.get("eq_idx", None),
+                mega=kwargs.get("mega", None), **common)
         else:
-            raise ValueError(f"Unknown improve method: {method}")
+            xs = improve_coord_descent_batch(form, xs, **common)
+    elif method == s.ADMM:
+        common = dict(num_iters=kwargs.get("num_iters", 1000),
+                      viol_lim=kwargs.get("viol_lim", 1e4),
+                      tol=kwargs.get("admm_tol", kwargs.get("tol", 1e-2)),
+                      phase1=kwargs.get("phase1", True))
+        if kwargs.get("use_fused", False):
+            # K3 (kernels/admm_kernel.py); the one-time setup comes in
+            # admm_data when solve_restarts built it
+            xs = admm_kernel.improve_admm_fused(
+                form, xs, rho=kwargs.get("rho", None),
+                better_tol=kwargs.get("better_tol", 1e-4),
+                data=kwargs.get("admm_data", None),
+                **common).to(xs.dtype)
+        else:
+            xs = improve_admm_batch(form, xs, kwargs.get("rho", None),
+                                    **common)
+    elif method == s.DCCP:
+        tau = kwargs.get("tau", 0.005)
+        if (kwargs.get("use_fused", False)
+                and not kwargs.get("use_eigen_split", False)):
+            # K4 (kernels/ccp_kernel.py); the one-time setup comes in
+            # ccp_data when solve_restarts built it
+            ccp_kw = {k: v for k, v in kwargs.items()
+                      if k in ("max_iter", "mu", "tau_max",
+                               "inner_iters", "warm_inner")}
+            xs = ccp_kernel.improve_ccp_fused(
+                form, xs, tau=tau, data=kwargs.get("ccp_data", None),
+                **ccp_kw).to(xs.dtype)
+        else:
+            # the same filtered forwarding as QCQP._improve_one
+            ccp_kw = {k: v for k, v in kwargs.items()
+                      if k in ("max_iter", "mu", "tau_max",
+                               "inner_iters", "use_eigen_split")}
+            xs = ccp_solver.improve_ccp_batch(form, xs, tau=tau,
+                                              **ccp_kw)
+    elif method == s.IPOPT:
+        xs = improve_nlp(form, xs, **{
+            k: v for k, v in kwargs.items()
+            if k in ("num_outer", "num_inner", "mu0")})
+    else:
+        raise ValueError(f"Unknown improve method: {method}")
     return xs
 
 
@@ -223,13 +245,15 @@ def fused_setups(form: QCQPForm, improve: Union[str, List[str]],
     kwargs = dict(kwargs)
     if (kwargs.get("use_fused", False) and s.ADMM in methods
             and "admm_data" not in kwargs and admm_kernel.takes(form)):
-        kwargs["admm_data"] = admm_kernel.ADMMFusedData(
-            form, kwargs.get("rho", None))
+        with span("qcqp.setup"):
+            kwargs["admm_data"] = admm_kernel.ADMMFusedData(
+                form, kwargs.get("rho", None))
     if (kwargs.get("use_fused", False) and s.DCCP in methods
             and "ccp_data" not in kwargs
             and not kwargs.get("use_eigen_split", False)
             and ccp_kernel.takes(form)):
-        kwargs["ccp_data"] = ccp_kernel.CCPFusedData(form)
+        with span("qcqp.setup"):
+            kwargs["ccp_data"] = ccp_kernel.CCPFusedData(form)
     return kwargs
 
 
@@ -288,17 +312,30 @@ def solve_restarts(form: QCQPForm, num_restarts: int,
     a multiple of the mesh's size, as in the JAX package.  Returns
     (x_best, f_best, viol_best) as tensors, on every rank of a mesh.
     """
-    if generator is None:
-        generator = torch.Generator(device=form.device).manual_seed(0)
-    if "use_fused" not in kwargs and _fused_default(form):
-        kwargs["use_fused"] = True
-    kwargs = fused_setups(form, improve, kwargs)
+    with span("qcqp.solve_restarts"):
+        if generator is None:
+            generator = torch.Generator(device=form.device).manual_seed(0)
+        if "use_fused" not in kwargs and _fused_default(form):
+            kwargs["use_fused"] = True
+        kwargs = fused_setups(form, improve, kwargs)
+        with span("qcqp.suggest"):
+            xs = _starts(form, num_restarts, generator, suggest, mesh,
+                         handler)
+        if mesh is None:
+            return best_point(form, improve_chain(form, xs, improve,
+                                                  **kwargs), better_tol)
+        return _solve_sharded(form, xs, improve, mesh, better_tol, **kwargs)
+
+
+def _starts(form: QCQPForm, num_restarts: int, generator, suggest: str,
+            mesh: Optional[Mesh], handler) -> torch.Tensor:
+    """solve_restarts's starts: the relaxation where the suggest takes
+    one, then the draw; with a mesh the whole padded batch, from the
+    relaxation of the mesh's first rank."""
     if mesh is None:
         sampler, spectral_sol = _relaxation(form, suggest, handler)
-        xs = suggest_batch(form, num_restarts, generator, suggest,
-                           sdr_sampler=sampler, spectral_sol=spectral_sol)
-        return best_point(form, improve_chain(form, xs, improve, **kwargs),
-                          better_tol)
+        return suggest_batch(form, num_restarts, generator, suggest,
+                             sdr_sampler=sampler, spectral_sol=spectral_sol)
     sampler = spectral_sol = None
     if suggest in (s.SDR, s.SPECTRAL):
         # the mesh's first rank solves (or reads) the relaxation; every
@@ -314,9 +351,8 @@ def solve_restarts(form: QCQPForm, num_restarts: int,
         else:
             spectral_sol, = parts
     num_padded = -(-num_restarts // mesh.size) * mesh.size
-    xs = suggest_batch(form, num_padded, generator, suggest,
-                       sdr_sampler=sampler, spectral_sol=spectral_sol)
-    return _solve_sharded(form, xs, improve, mesh, better_tol, **kwargs)
+    return suggest_batch(form, num_padded, generator, suggest,
+                         sdr_sampler=sampler, spectral_sol=spectral_sol)
 
 
 def _solve_sharded(form: QCQPForm, xs: torch.Tensor,

@@ -44,6 +44,12 @@ candidates of n + 3 numbers), and one all_gather over `s_axis` hands
 every rank all S results, as the JAX package's global array reads in
 one process.  A rank may load only its own scenarios from a bank
 (`scenario_block`, then forms_from_bank(path, start, batch)).
+
+Both solves emit `qcqp.solve_scenarios` into a running torch.profiler
+trace, around the spans of parallel/restarts.py: `qcqp.suggest` around
+the draw, `qcqp.setup` for each scenario's fused set-ups,
+`qcqp.improve.<method>` for each stage (the stacked K1 launch's one span,
+or each scenario's), `qcqp.best` and `qcqp.gather`.
 """
 
 from __future__ import annotations
@@ -56,6 +62,7 @@ from .. import native
 from .. import settings as s
 from ..convert import form_from_numpy
 from ..core import QCQPForm, default_device
+from ..diagnostics import span
 from ..solvers.coord_descent_fused import improve_coord_descent_fused_stack
 from .mesh import Mesh, block
 from .restarts import (_fused_default, best_point, candidate, fused_setups,
@@ -126,18 +133,23 @@ def solve_scenarios(stacked: QCQPForm, num_restarts: int,
     holds the whole stack.  Returns (xs (S, n), fs (S,), viols (S,)), on
     every rank of a mesh.
     """
-    if generator is None:
-        generator = torch.Generator(device=stacked.device).manual_seed(0)
-    S = stacked.P.shape[0]
-    first = scenario(stacked, 0)
-    if mesh is None:
-        xs = _draw(first, S, num_restarts, generator, suggest)
-        return _solve_from_starts(stacked, xs, improve, better_tol, **kwargs)
-    lo, hi = block(num_restarts, mesh.shape[axis], mesh.index(axis))
-    xs = _draw(first, S, num_restarts, generator, suggest,
-               rows=slice(lo, hi))
-    return _best_across(stacked, xs, improve, mesh, axis, num_restarts,
-                        better_tol, **kwargs)
+    with span("qcqp.solve_scenarios"):
+        if generator is None:
+            generator = torch.Generator(
+                device=stacked.device).manual_seed(0)
+        S = stacked.P.shape[0]
+        rows = slice(None)
+        if mesh is not None:
+            rows = slice(*block(num_restarts, mesh.shape[axis],
+                                mesh.index(axis)))
+        with span("qcqp.suggest"):
+            xs = _draw(scenario(stacked, 0), S, num_restarts, generator,
+                       suggest, rows=rows)
+        if mesh is None:
+            return _solve_from_starts(stacked, xs, improve, better_tol,
+                                      **kwargs)
+        return _best_across(stacked, xs, improve, mesh, axis, num_restarts,
+                            better_tol, **kwargs)
 
 
 def _improve_from_starts(stacked: QCQPForm, xs: torch.Tensor,
@@ -152,13 +164,14 @@ def _improve_from_starts(stacked: QCQPForm, xs: torch.Tensor,
     per_form = [fused_setups(f, improve, kwargs) for f in forms]
     for method in improve if isinstance(improve, list) else [improve]:
         if method == s.COORD_DESCENT and kwargs.get("use_fused", False):
-            xs = improve_coord_descent_fused_stack(
-                stacked, xs, num_iters=kwargs.get("num_iters", 1000),
-                viol_tol=kwargs.get("viol_tol", 1e-2),
-                tol=kwargs.get("tol", 1e-4),
-                phase1=kwargs.get("phase1", True),
-                eq_idx=kwargs.get("eq_idx", None),
-                mega=kwargs.get("mega", None))
+            with span(f"qcqp.improve.{method}"):
+                xs = improve_coord_descent_fused_stack(
+                    stacked, xs, num_iters=kwargs.get("num_iters", 1000),
+                    viol_tol=kwargs.get("viol_tol", 1e-2),
+                    tol=kwargs.get("tol", 1e-4),
+                    phase1=kwargs.get("phase1", True),
+                    eq_idx=kwargs.get("eq_idx", None),
+                    mega=kwargs.get("mega", None))
             continue
         out = xs.clone()
         for i, (form, kw) in enumerate(zip(forms, per_form)):
@@ -221,22 +234,25 @@ def solve_scenarios_sharded(stacked: QCQPForm, num_restarts: int,
     r-axis size.  generator: as in solve_scenarios, the same seed on every
     rank.  Returns (xs (S, n), fs (S,), viols (S,)) on every rank.
     """
-    S = stacked.P.shape[0] if num_scenarios is None else num_scenarios
-    start, batch = scenario_block(S, mesh, s_axis)
-    if num_scenarios is None:
-        stacked = QCQPForm(*(a[start:start + batch] for a in stacked))
-    elif stacked.P.shape[0] != batch:
-        raise ValueError(f"this rank's block holds {batch} of the {S} "
-                         f"scenarios, the stack {stacked.P.shape[0]}")
-    r_size = mesh.shape[r_axis]
-    R = -(-num_restarts // r_size) * r_size
-    if generator is None:
-        generator = torch.Generator(device=stacked.device).manual_seed(0)
-    lo, hi = block(R, r_size, mesh.index(r_axis))
-    xs = _draw(scenario(stacked, 0), S, R, generator, suggest,
-               keep=range(start, start + batch), rows=slice(lo, hi))
-    return _sharded_from_starts(stacked, xs, mesh, s_axis, r_axis, R,
-                                improve, better_tol, **kwargs)
+    with span("qcqp.solve_scenarios"):
+        S = stacked.P.shape[0] if num_scenarios is None else num_scenarios
+        start, batch = scenario_block(S, mesh, s_axis)
+        if num_scenarios is None:
+            stacked = QCQPForm(*(a[start:start + batch] for a in stacked))
+        elif stacked.P.shape[0] != batch:
+            raise ValueError(f"this rank's block holds {batch} of the {S} "
+                             f"scenarios, the stack {stacked.P.shape[0]}")
+        r_size = mesh.shape[r_axis]
+        R = -(-num_restarts // r_size) * r_size
+        if generator is None:
+            generator = torch.Generator(
+                device=stacked.device).manual_seed(0)
+        lo, hi = block(R, r_size, mesh.index(r_axis))
+        with span("qcqp.suggest"):
+            xs = _draw(scenario(stacked, 0), S, R, generator, suggest,
+                       keep=range(start, start + batch), rows=slice(lo, hi))
+        return _sharded_from_starts(stacked, xs, mesh, s_axis, r_axis, R,
+                                    improve, better_tol, **kwargs)
 
 
 def _sharded_from_starts(local: QCQPForm, xs: torch.Tensor, mesh: Mesh,
@@ -248,6 +264,8 @@ def _sharded_from_starts(local: QCQPForm, xs: torch.Tensor, mesh: Mesh,
     the best points reduced over `r_axis`, then gathered over `s_axis`."""
     x, f, v = _best_across(local, xs, improve, mesh, r_axis, total,
                            better_tol, **kwargs)
-    res = mesh.all_gather(torch.cat([x, f[:, None], v[:, None]], 1), s_axis)
+    with span("qcqp.gather"):
+        res = mesh.all_gather(torch.cat([x, f[:, None], v[:, None]], 1),
+                              s_axis)
     res = res.reshape(-1, local.n + 2)
     return res[:, :-2], res[:, -2], res[:, -1]

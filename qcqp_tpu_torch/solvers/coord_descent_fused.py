@@ -42,6 +42,7 @@ from __future__ import annotations
 import torch
 
 from ..core import QCQPForm, max_violation_batch
+from ..diagnostics import span
 from ..kernels.cd_sweep_kernel import holds, two_phase_sweeps
 from ..kernels.onevar_kernel import phase1_coordinate_update
 from .coord_descent import _refresh, _viol_from_F, coord_descent_phase2
@@ -125,14 +126,20 @@ def improve_coord_descent_fused(form: QCQPForm, xs, num_iters=1000,
     whose H100 numbers the module docstring gives); mega=False runs
     phase 1 through K2 and the unfused phase 2.  mega=True on a shape K1
     cannot hold raises, on the CPU too.
+
+    The span `qcqp.k1.host` holds the host's part of a K1 launch: the
+    equality rows read back, then two_phase_sweeps up to the launch (on
+    CPU tensors the plain version too).  On the K2 route it holds only the
+    read-back.
     """
-    if eq_idx is None:
-        eq_idx = form.eq_idx()
-    if _use_k1(mega, form.n, form.m, len(eq_idx)):
-        return two_phase_sweeps(form.P, form.q, form.r, eq_idx, xs,
-                                num_iters=num_iters, viol_tol=viol_tol,
-                                tol=tol, n_bisect=N_BISECT,
-                                phase1=phase1).to(xs.dtype)
+    with span("qcqp.k1.host"):
+        if eq_idx is None:
+            eq_idx = form.eq_idx()
+        if _use_k1(mega, form.n, form.m, len(eq_idx)):
+            return two_phase_sweeps(form.P, form.q, form.r, eq_idx, xs,
+                                    num_iters=num_iters, viol_tol=viol_tol,
+                                    tol=tol, n_bisect=N_BISECT,
+                                    phase1=phase1).to(xs.dtype)
     x = xs.clone()
     if phase1:
         x = coord_descent_phase1_fused(form, x, num_iters, viol_tol, tol,
@@ -152,23 +159,27 @@ def improve_coord_descent_fused_stack(stacked: QCQPForm, xs, num_iters=1000,
     `cd_sweep_kernel.holds` at the stack's largest E), one K1 launch for
     all S x R restarts, each scenario with its own equality pattern
     (eq_idx, when given, for every scenario, as the JAX package applies
-    it under vmap); otherwise the K2 route one scenario at a time."""
+    it under vmap); otherwise the K2 route one scenario at a time.  The
+    span `qcqp.k1.host` as in improve_coord_descent_fused."""
     S = stacked.P.shape[0]
     forms = [QCQPForm(*(a[i] for a in stacked)) for i in range(S)]
-    if eq_idx is None:
-        eqs = [tuple(int(j) for j in row.nonzero()[0])
-               for row in stacked.is_eq.cpu().numpy()]
-    else:
-        eqs = [eq_idx] * S
-    if not (forms and _use_k1(mega, stacked.P.shape[-1],
-                              stacked.P.shape[1] - 1,
-                              max(len(e) for e in eqs))):
-        out = xs.clone()
-        for i, form in enumerate(forms):
-            out[i] = improve_coord_descent_fused(
-                form, xs[i], num_iters, viol_tol, tol, phase1, eq_idx,
-                mega=False)
-        return out
-    return two_phase_sweeps(stacked.P, stacked.q, stacked.r, eqs, xs,
-                            num_iters=num_iters, viol_tol=viol_tol, tol=tol,
-                            n_bisect=N_BISECT, phase1=phase1).to(xs.dtype)
+    with span("qcqp.k1.host"):
+        if eq_idx is None:
+            eqs = [tuple(int(j) for j in row.nonzero()[0])
+                   for row in stacked.is_eq.cpu().numpy()]
+        else:
+            eqs = [eq_idx] * S
+        if forms and _use_k1(mega, stacked.P.shape[-1],
+                             stacked.P.shape[1] - 1,
+                             max(len(e) for e in eqs)):
+            return two_phase_sweeps(stacked.P, stacked.q, stacked.r, eqs,
+                                    xs, num_iters=num_iters,
+                                    viol_tol=viol_tol, tol=tol,
+                                    n_bisect=N_BISECT,
+                                    phase1=phase1).to(xs.dtype)
+    out = xs.clone()
+    for i, form in enumerate(forms):
+        out[i] = improve_coord_descent_fused(
+            form, xs[i], num_iters, viol_tol, tol, phase1, eq_idx,
+            mega=False)
+    return out
